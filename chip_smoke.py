@@ -1,0 +1,505 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of SEARS (``repro_torch``) on one GPU.
+
+Run from the root of a checkout, on a machine with one CUDA device:
+
+    python3 chip_smoke.py [--log-dir DIR]
+
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
+use compiles them with ``nvcc``), then drives the store's main path
+through the entry points a user calls, on the card:
+
+1. ``env``: the card (``nvidia-smi``), torch and CUDA versions, build time.
+2. ``put``: one put window of 16 users x 4 files x 3 MiB (192 MiB; a
+   quarter of each file from a seeded shared pool) into
+   ``SEARSStore(classes=[StorageClass.realtime()])`` -- 20 clusters, ULB
+   binding, (10,5) code, 1/4/8 KB chunker, the default ``kernel`` engine,
+   the runtime sanitizer on.  Its launch counts must fit the sanitizer's
+   model: 1 gear, <= ceil(chunks/512) SHA-1, <= one GF per length bucket.
+3. ``get``: every file back, byte for byte.
+4. ``degraded_get``: five nodes of a cluster that holds data killed; the
+   gets decode through the GF kernel and must still be byte-equal.
+5. ``repair``: the killed nodes replaced, ``repair_all()``; the report
+   must balance and a get afterwards must be byte-equal.
+6. ``kernels``: each CUDA kernel against its plain torch version on the
+   card at main-path shapes (exact equality), timed with CUDA events
+   beside its bound.  Launch counts in this line are those of the main
+   path (phases 2-5): every kernel must have launched there.
+7. ``differential``: a 32 MiB trace through the port's ``NumpyEngine``
+   and through ``TorchEngine()`` on the card; node piece digests, index
+   records and stats must be identical.
+8. ``profile_put``: the put window once more, into a fresh store, under
+   ``torch.profiler``: the device's busy time by kernel and copy, and
+   its idle share over the window.
+
+Each phase prints one JSON line; then the ``{"kernels": [...]}`` line,
+the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
+a CUDA device, or without the repository beside it, it exits non-zero
+and prints no result.  ``--log-dir`` writes the compilers' output and
+the profiler's table there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth,
+# and the 32-bit rate outside the tensor cores (the integer and bitwise
+# work of these kernels has no faster path).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# SHA-1 operations per 64-byte block: 64 schedule words x (3 xor + 1
+# rotate) + 80 rounds x (f: 2.75 on average + 4 adds + 2 rotates) + 5.
+SHA1_OPS_PER_BLOCK = 64 * 4 + 80 * 8.75 + 5
+
+
+@dataclasses.dataclass(frozen=True)
+class Sizes:
+    users: int = 16
+    files_per_user: int = 4
+    file_bytes: int = 3 << 20
+    segment: int = 64 << 10   # shared-pool granule of the put files
+    diff_bytes: int = 32 << 20
+    gf_batch: int = 1024
+    gf_len: int = 2048
+    gear_bytes: int = 64 << 20
+    sha1_msgs: int = 512
+    sha1_max: int = 8192
+    reps: int = 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ data --
+def make_files(sizes: Sizes, seed: int) -> dict[str, list[tuple[str, bytes]]]:
+    """Per-user files; a quarter of each file's segments from a shared pool."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    seg = sizes.segment
+    nseg = sizes.file_bytes // seg
+    pool = [rng.bytes(seg) for _ in range(64)]
+    out: dict[str, list[tuple[str, bytes]]] = {}
+    for u in range(sizes.users):
+        files = []
+        for f in range(sizes.files_per_user):
+            shared = set(rng.choice(nseg, size=nseg // 4, replace=False))
+            parts = [pool[int(rng.integers(len(pool)))] if i in shared
+                     else rng.bytes(seg) for i in range(nseg)]
+            files.append((f"user{u}/file{f}.bin", b"".join(parts)))
+        out[f"user{u}"] = files
+    return out
+
+
+def get_all(store, files) -> float:
+    """Get every file back and hold it byte-equal; returns seconds."""
+    t0 = time.perf_counter()
+    for user, fl in files.items():
+        got = store.get_files(user, [name for name, _ in fl])
+        for (name, data), (blob, _) in zip(fl, got):
+            if blob != data:
+                raise AssertionError(f"{name}: bytes differ after get")
+    return time.perf_counter() - t0
+
+
+def artifacts(store) -> dict:
+    """Node piece digests, index records, listings and stats of a store."""
+    nodes = {}
+    for cl in store.clusters:
+        for node in cl.nodes:
+            h = hashlib.sha1()
+            for cid, pidx in sorted(node._pieces):
+                h.update(cid)
+                h.update(pidx.to_bytes(4, "big"))
+                h.update(hashlib.sha1(node._pieces[(cid, pidx)]).digest())
+            nodes[(cl.cluster_id, node.node_id)] = h.hexdigest()
+    return {"nodes": nodes,
+            "records": sorted((cid, cl, info.refcount, info.length)
+                              for cid, cl, info in store.index.records()),
+            "listings": {u: sorted(sw.table)
+                         for u, sw in sorted(store.switching.items())},
+            "stats": dataclasses.asdict(store.stats())}
+
+
+# ------------------------------------------------------------ main path --
+def main_path(sizes: Sizes, engine, sync) -> tuple[list[dict], dict]:
+    """put / get / degraded_get / repair; returns phase lines and counts."""
+    from repro_torch.core import SEARSStore, StorageClass
+    from repro_torch.kernels import gf_matmul
+    from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
+
+    files = make_files(sizes, seed=11)
+    logical = sum(len(d) for fl in files.values() for _, d in fl)
+    cls = StorageClass.realtime()
+    store = SEARSStore(classes=[cls], engine=engine, sanitize=True)
+    lines = []
+
+    reset_kernels()
+    before = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    stats = store.put_windows_pipelined([list(files.items())])[0]
+    sync()
+    put_s = time.perf_counter() - t0
+    d = LAUNCHES.delta(before)
+    chunks = sum(s.n_chunks for s in stats)
+    buckets = math.ceil(cls.code.piece_len(cls.chunk_max) / gf_matmul.TILE_L)
+    if d.gear != 1 or d.sha1 > math.ceil(chunks / 512) or d.gf > buckets \
+            or d.gf < 1 or d.sha1 < 1:
+        raise AssertionError(f"put launches {d} outside the model: 1 gear, "
+                             f"<= {math.ceil(chunks / 512)} sha1, 1..{buckets}"
+                             f" gf for {chunks} chunks")
+    lines.append({"phase": "put", "files": len(stats),
+                  "mib": logical / 2**20, "seconds": put_s,
+                  "mib_per_s": logical / 2**20 / put_s, "chunks": chunks,
+                  "dedup_ratio": store.stats().dedup_ratio,
+                  "launches": dataclasses.asdict(d),
+                  "kernels": dict(KERNELS)})
+
+    before = LAUNCHES.snapshot()
+    get_s = get_all(store, files)
+    lines.append({"phase": "get", "seconds": get_s,
+                  "mib_per_s": logical / 2**20 / get_s,
+                  "launches": dataclasses.asdict(LAUNCHES.delta(before))})
+
+    victim = max(store.clusters, key=lambda c: c.used)
+    victim.kill_nodes([0, 2, 4, 6, 8])
+    before = LAUNCHES.snapshot()
+    deg_s = get_all(store, files)
+    d = LAUNCHES.delta(before)
+    if d.gf < 1:
+        raise AssertionError("degraded get launched no GF decode")
+    lines.append({"phase": "degraded_get", "cluster": victim.cluster_id,
+                  "seconds": deg_s, "launches": dataclasses.asdict(d)})
+
+    victim.replace_nodes([0, 2, 4, 6, 8])
+    before = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    report = store.repair_all()
+    sync()
+    rep_s = time.perf_counter() - t0
+    d = LAUNCHES.delta(before)
+    if not report.balanced or report.pieces_rebuilt < 1:
+        raise AssertionError(f"repair did not balance: {report}")
+    after_s = get_all(store, files)
+    lines.append({"phase": "repair", "seconds": rep_s,
+                  "pieces_rebuilt": report.pieces_rebuilt,
+                  "chunks_rebuilt": len(report.rebuilt),
+                  "get_after_seconds": after_s,
+                  "launches": dataclasses.asdict(d)})
+    return lines, dict(KERNELS)
+
+
+def differential(sizes: Sizes, engine) -> dict:
+    """Same trace through NumpyEngine and the torch engine: identical."""
+    from repro_torch.core import SEARSStore, StorageClass
+    per_user = sizes.diff_bytes // 8 // 4
+    sub = dataclasses.replace(sizes, users=8, files_per_user=4,
+                              file_bytes=per_user)
+    files = make_files(sub, seed=23)
+    users = sorted(files)
+    arts, obs, t = [], [], []
+    for eng in ("numpy", engine):
+        store = SEARSStore(classes=[StorageClass.realtime()], engine=eng,
+                           sanitize=True)
+        t0 = time.perf_counter()
+        # two pipelined put windows, a delete, an overwrite, then gets
+        store.put_windows_pipelined([list(files.items())[:4],
+                                     list(files.items())[4:]])
+        store.delete_file(users[0], files[users[0]][0][0])
+        store.put_files(users[1], [(files[users[1]][0][0],
+                                    files[users[2]][1][1])])
+        seen = []
+        for user in users[1:]:
+            names = [name for name, _ in files[user]]
+            for blob, st in store.get_files_pipelined(user, names):
+                seen.append((hashlib.sha1(blob).hexdigest(),
+                             dataclasses.astuple(st)))
+        obs.append(seen)
+        arts.append(artifacts(store))
+        t.append(time.perf_counter() - t0)
+    if obs[0] != obs[1]:
+        raise AssertionError("differential: gets diverged")
+    for key in ("nodes", "records", "listings", "stats"):
+        if arts[0][key] != arts[1][key]:
+            raise AssertionError(f"differential: {key} diverged")
+    return {"phase": "differential", "mib": sizes.diff_bytes / 2**20,
+            "numpy_seconds": t[0], "torch_seconds": t[1],
+            "nodes": len(arts[0]["nodes"]), "records": len(arts[0]["records"]),
+            "identical": True}
+
+
+# -------------------------------------------------------------- kernels --
+def timer(device):
+    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up."""
+    import torch
+
+    def run(fn, reps: int, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        if device.type != "cuda":
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ts)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e))
+        return statistics.median(ts)
+    return run
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
+          shape) -> dict:
+    bms, by = bound(nbytes, ops)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "shape": shape, "bytes": nbytes, "ops": ops}
+
+
+def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
+    """Each kernel against its plain version at main-path shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import chunking, hashing, rs_code
+    from repro_torch.core.classes import StorageClass
+    from repro_torch.kernels import gear_cdc, gf_matmul, ref, sha1, tables
+
+    run = timer(device)
+    t = tables.tables(device)
+    rng = np.random.default_rng(5)
+    reps = sizes.reps
+    out = []
+
+    def maxerr(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    # K1: GF(2^8) matmul -- (10,5) encode, and a degraded decode
+    B, L = sizes.gf_batch, sizes.gf_len
+    data = torch.from_numpy(rng.integers(0, 256, (B, 5, L), dtype=np.uint8)
+                            ).to(device)
+    G = rs_code.generator_matrix(10, 5)
+    Dm = rs_code.decode_matrix(10, 5, (1, 3, 5, 7, 9))
+    Gt = torch.from_numpy(G.astype(np.uint8)).to(device)
+    Dt = torch.from_numpy(Dm.astype(np.uint8)).to(device)
+    err = 0
+    for M, Mt in ((G, Gt), (Dm, Dt)):
+        got = gf_matmul.gf_matmul(M, data)
+        want = ref.gf_matmul_ref(Mt, data, t.gf_log, t.gf_exp)
+        err = max(err, maxerr(got, want))
+    ms = run(lambda: gf_matmul.gf_matmul(G, data), reps)
+    plain = run(lambda: ref.gf_matmul_ref(Gt, data, t.gf_log, t.gf_exp), 3, 1)
+    out.append(entry("gf_matmul", "gf_matmul.cu",
+                     "src/repro/kernels/gf_matmul.py:34",
+                     counts["gf_matmul"], err, ms, plain,
+                     B * L * (5 + 10), 2.0 * B * L * 10 * 5, [B, 5, L]))
+
+    # K2/K3: gear fire (realtime and archival masks) and gear hash
+    n = sizes.gear_bytes
+    stream = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)
+                              ).to(device)
+    masks = [StorageClass.realtime().chunker.mask,
+             StorageClass.archival().chunker.mask]
+    h_plain = ref.gear_hash_ref(stream, t.gear)
+    err = 0
+    for mask in masks:
+        got = gear_cdc.gear_fire(stream, mask)
+        want = (h_plain & gear_cdc._mask_bits(mask)) == 0
+        err = max(err, maxerr(got, want))
+    ms = run(lambda: gear_cdc.gear_fire(stream, masks[0]), reps)
+    plain = run(lambda: (ref.gear_hash_ref(stream, t.gear)
+                         & gear_cdc._mask_bits(masks[0])) == 0, 3, 1)
+    # cheapest form: per byte a lookup, shift, add, and, compare
+    out.append(entry("gear_fire", "gear_cdc.cu",
+                     "src/repro/kernels/gear_cdc.py:92", counts["gear_fire"],
+                     err, ms, plain, 2 * n + 1024, 5.0 * n, [n]))
+    got = gear_cdc.gear_hash(stream)
+    err = maxerr(got, h_plain)
+    head = min(n, 1 << 16)
+    seq = chunking.gear_hash_sequential(stream[:head].cpu().numpy())
+    if not np.array_equal(got[:head].cpu().numpy().view(np.uint32), seq):
+        raise AssertionError("gear hash differs from the sequential oracle")
+    ms = run(lambda: gear_cdc.gear_hash(stream), reps)
+    plain = run(lambda: ref.gear_hash_ref(stream, t.gear), 3, 1)
+    out.append(entry("gear_hash", "gear_cdc.cu",
+                     "src/repro/kernels/gear_cdc.py:68", counts["gear_hash"],
+                     err, ms, plain, 5 * n + 1024, 3.0 * n, [n]))
+    del stream, h_plain, got
+
+    # K4: SHA-1 over 512 messages of 0..8192 bytes, also against hashlib
+    lens = rng.integers(0, sizes.sha1_max + 1, sizes.sha1_msgs)
+    lens[:2] = (0, sizes.sha1_max)
+    msgs = [rng.bytes(int(x)) for x in lens]
+    blocks, cnt = hashing.sha1_pad_batch(msgs, max_len=sizes.sha1_max)
+    bt = torch.from_numpy(blocks.view(np.int32)).to(device)
+    ct = torch.from_numpy(cnt).to(device)
+    got = sha1.sha1_digest_words(bt, ct)
+    want = ref.sha1_ref(bt, ct)
+    err = maxerr(got, want)
+    digests = hashing.digest_words_to_bytes(got.cpu().numpy().view(np.uint32))
+    if digests != [hashlib.sha1(m).digest() for m in msgs]:
+        raise AssertionError("SHA-1 kernel differs from hashlib")
+    ms = run(lambda: sha1.sha1_digest_words(bt, ct), reps)
+    plain = run(lambda: ref.sha1_ref(bt, ct), 1, 1)
+    nblk = int(cnt.sum())
+    out.append(entry("sha1", "sha1.cu", "src/repro/kernels/sha1.py:56",
+                     counts["sha1"], err, ms, plain,
+                     nblk * 64 + len(msgs) * (4 + 20),
+                     nblk * SHA1_OPS_PER_BLOCK, list(blocks.shape)))
+    return out
+
+
+def profile_put(sizes: Sizes, engine, device, log_dir=None) -> dict:
+    """The put window again, into a fresh store, under ``torch.profiler``:
+    the device's busy time by kernel and copy, and its idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import SEARSStore, StorageClass
+
+    files = make_files(sizes, seed=11)
+    store = SEARSStore(classes=[StorageClass.realtime()], engine=engine,
+                       sanitize=True)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        store.put_windows_pipelined([list(files.items())])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    # device-side events only (kernels, copies): a host op such as
+    # aten::copy_ also carries the device time of the copy it issued
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in avgs if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in rows)
+    if log_dir is not None:
+        (pathlib.Path(log_dir) / "chip_smoke_profile_put.txt").write_text(
+            avgs.table(sort_by="self_device_time_total", row_limit=40))
+    return {"phase": "profile_put", "wall_seconds": wall,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / 1e3 / wall,
+            "by_name_ms": [[k, n, ms] for k, n, ms in rows[:10]]}
+
+
+# ------------------------------------------------------------------ run --
+def run(sizes: Sizes, device, engine, card: str = "",
+        log_dir=None) -> list[dict]:
+    """Every phase; raises on the first failure.  Returns the JSON lines."""
+    import torch
+    from repro_torch.kernels import _build
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    lines = []
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        _build.library()
+    build_s = time.perf_counter() - t0
+    if log_dir is not None:
+        pathlib.Path(log_dir).mkdir(parents=True, exist_ok=True)
+        (pathlib.Path(log_dir) / "chip_smoke_build.log").write_text(
+            _build.BUILD_INFO["log"])
+    lines.append({"phase": "env", "card": card, "torch": torch.__version__,
+                  "cuda": torch.version.cuda, "device": str(device),
+                  "build_seconds": build_s,
+                  "built_now": _build.BUILD_INFO["built"]})
+    for line in lines:
+        emit(line)
+    path_lines, counts = main_path(sizes, engine, sync)
+    for line in path_lines:
+        emit(line)
+    missing = [k for k, v in counts.items() if k != "gear_hash" and v < 1]
+    if device.type == "cuda" and missing:
+        raise AssertionError(f"main path never launched {missing}")
+    kern = kernels(sizes, device, counts)
+    emit({"phase": "kernels", "kernels": [
+        {k: e[k] for k in ("name", "launches", "max_abs_err", "ms",
+                           "plain_ms", "bytes", "bound_ms", "bound_by")}
+        for e in kern]})
+    bad = [e["name"] for e in kern if e["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"kernels differ from their plain versions: "
+                             f"{bad}")
+    emit(differential(sizes, engine))
+    emit(profile_put(sizes, engine, device, log_dir))
+    return kern
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--log-dir", default=None,
+                    help="write the kernel build log and the profile "
+                         "table to this directory")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no repro_torch sources under {SRC}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    card = nvidia_smi()
+    kern = run(Sizes(), torch.device("cuda"), "kernel", card, args.log_dir)
+    # the main path's kernel launch counts count toward 'launches'; the
+    # comparison launches above them do not (main_path read them first)
+    emit({"kernels": [{k: e[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for e in kern]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,89 @@
+"""The data plane's fixed tables, uploaded once per device.
+
+SEARS has no learned weights; its parameters are fixed tables: the gear
+table of the CDC rolling hash (``core.chunking.GEAR_TABLE``) and the
+GF(2^8) log/exp tables (``core.gf256``).  ``load_tables`` takes them as
+numpy arrays, uploads them to a device once, and derives the forms the
+CUDA GF kernel reads.  Every kernel wrapper and every plain version reads
+its tables from here, so a caller that loads other arrays (for example
+the JAX reference's, in the tests) changes what both compute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.chunking import GEAR_TABLE
+from repro_torch.core.gf256 import GF_EXP, GF_LOG
+
+# Log value the GF kernel gives to the byte 0: any sum with it lands past
+# every real log sum (<= 254 + 254), where the extended exp table is 0 --
+# the branch-free form of the ``m == 0 or d == 0 -> 0`` rule.
+ZERO_LOG = 512
+KEXP_LEN = 1040  # >= 2 * ZERO_LOG + 1, rounded up to 16 bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class Tables:
+    """One device's copy of the fixed tables."""
+
+    gear: torch.Tensor     # (256,) int32: the uint32 gear values' bits
+    gf_log: torch.Tensor   # (256,) int64: GF log (plain version)
+    gf_exp: torch.Tensor   # (510,) int64: doubled GF exp (plain version)
+    gf_klog: torch.Tensor  # (256,) int16: log with 0 -> ZERO_LOG (kernel)
+    gf_kexp: torch.Tensor  # (KEXP_LEN,) uint8: exp, 0 past the logs (kernel)
+
+
+_TABLES: dict[tuple[str, int | None], Tables] = {}
+
+
+def _key(device) -> tuple[str, int | None]:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (device.type, device.index)
+
+
+def load_tables(gear_table: np.ndarray = GEAR_TABLE,
+                gf_log: np.ndarray = GF_LOG, gf_exp: np.ndarray = GF_EXP,
+                device="cuda") -> Tables:
+    """Upload the gear and GF tables to ``device``; the kernels read these.
+
+    ``gear_table`` is (256,) uint32, ``gf_log`` (256,) and ``gf_exp``
+    (510,) integer arrays of the field with generator 2 (the exp table
+    doubled so a sum of two logs needs no mod 255).  Replaces any tables
+    loaded for the device before.
+    """
+    gear = np.asarray(gear_table)
+    log = np.asarray(gf_log, dtype=np.int64)
+    exp = np.asarray(gf_exp, dtype=np.int64)
+    if gear.shape != (256,) or log.shape != (256,) or exp.shape != (510,):
+        raise ValueError(f"need (256,) gear, (256,) log and (510,) exp "
+                         f"tables, got {gear.shape}, {log.shape}, "
+                         f"{exp.shape}")
+    if np.any(log[1:] > 254) or np.any(log < 0) or np.any(exp < 0) \
+            or np.any(exp > 255):
+        raise ValueError("GF log values must lie in [0, 254] and exp "
+                         "values in [0, 255]")
+    klog = log.copy()
+    klog[0] = ZERO_LOG
+    kexp = np.zeros(KEXP_LEN, dtype=np.uint8)
+    kexp[:exp.shape[0]] = exp
+    gear_bits = np.ascontiguousarray(gear.astype(np.uint32)).view(np.int32)
+    device = torch.device(device)
+    t = Tables(gear=torch.from_numpy(gear_bits.copy()).to(device),
+               gf_log=torch.from_numpy(log).to(device),
+               gf_exp=torch.from_numpy(exp).to(device),
+               gf_klog=torch.from_numpy(klog.astype(np.int16)).to(device),
+               gf_kexp=torch.from_numpy(kexp).to(device))
+    _TABLES[_key(device)] = t
+    return t
+
+
+def tables(device) -> Tables:
+    """The tables loaded for ``device``, loading the defaults at first use."""
+    t = _TABLES.get(_key(device))
+    return t if t is not None else load_tables(device=device)
