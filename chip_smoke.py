@@ -21,16 +21,30 @@ through the entry points a user calls, on the card:
    gets decode through the GF kernel and must still be byte-equal.
 5. ``repair``: the killed nodes replaced, ``repair_all()``; the report
    must balance and a get afterwards must be byte-equal.
-6. ``kernels``: each CUDA kernel against its plain torch version on the
+6. ``fused_put``, ``fused_get``, ``fused_degraded_get``,
+   ``fused_repair``: the fused ingest path -- the same window into a
+   fresh store on ``engine="fused"`` (``TorchFusedEngine``): 1 gear,
+   no SHA-1 and no GF launch, at most one fused launch per length
+   bucket.  Its node piece digests, index records and stats must equal
+   the ``kernel`` store's after phase 2; then every file back, a
+   degraded get and a repair, as in phases 3-5.
+7. ``kernels``: each CUDA kernel against its plain torch version on the
    card at main-path shapes (exact equality), timed with CUDA events
-   beside its bound.  Launch counts in this line are those of the main
-   path (phases 2-5): every kernel must have launched there.
-7. ``differential``: a 32 MiB trace through the port's ``NumpyEngine``
+   beside its bound; the fused ingest kernel also against the staged
+   SHA-1 + GF kernels on the same chunks (``staged_ms``).  Launch counts
+   in this line are those of the main paths (phases 2-5 for the staged
+   kernels, 6 for the fused one): every kernel must have launched there.
+8. ``differential``: a 32 MiB trace through the port's ``NumpyEngine``
    and through ``TorchEngine()`` on the card; node piece digests, index
    records and stats must be identical.
-8. ``profile_put``: the put window once more, into a fresh store, under
-   ``torch.profiler``: the device's busy time by kernel and copy, and
-   its idle share over the window.
+9. ``fused_paths``: the store paths a fused engine changes, each at
+   <= 32 MiB on ``engine="fused"`` beside the port's ``NumpyEngine`` on
+   the same trace, identical: a mixed realtime + archival window, a
+   ``shards=4`` window, a ``BatchScheduler`` flush with gets, and a
+   write-back cache window (no fused launch at commit, GF at the drain).
+10. ``profile_put``, ``profile_fused_put``: the put window once more on
+   each engine, into a fresh store, under ``torch.profiler``: the
+   device's busy time by kernel and copy, and its idle share.
 
 Each phase prints one JSON line; then the ``{"kernels": [...]}`` line,
 the card's name and power limit, and last
@@ -144,8 +158,11 @@ def artifacts(store) -> dict:
 
 
 # ------------------------------------------------------------ main path --
-def main_path(sizes: Sizes, engine, sync) -> tuple[list[dict], dict]:
-    """put / get / degraded_get / repair; returns phase lines and counts."""
+def main_path(sizes: Sizes, engine, sync, prefix: str = ""
+              ) -> tuple[list[dict], dict, dict]:
+    """put / get / degraded_get / repair on ``engine``; returns the phase
+    lines (names prefixed by ``prefix``), the kernel launch counts of the
+    whole path and the store's artifacts right after the put."""
     from repro_torch.core import SEARSStore, StorageClass
     from repro_torch.kernels import gf_matmul
     from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
@@ -154,6 +171,7 @@ def main_path(sizes: Sizes, engine, sync) -> tuple[list[dict], dict]:
     logical = sum(len(d) for fl in files.values() for _, d in fl)
     cls = StorageClass.realtime()
     store = SEARSStore(classes=[cls], engine=engine, sanitize=True)
+    fused = store.engine.supports_fused_ingest
     lines = []
 
     reset_kernels()
@@ -165,12 +183,18 @@ def main_path(sizes: Sizes, engine, sync) -> tuple[list[dict], dict]:
     d = LAUNCHES.delta(before)
     chunks = sum(s.n_chunks for s in stats)
     buckets = math.ceil(cls.code.piece_len(cls.chunk_max) / gf_matmul.TILE_L)
-    if d.gear != 1 or d.sha1 > math.ceil(chunks / 512) or d.gf > buckets \
-            or d.gf < 1 or d.sha1 < 1:
+    if fused:
+        if d.gear != 1 or d.sha1 or d.gf or not 1 <= d.fused <= buckets:
+            raise AssertionError(f"fused put launches {d} outside the "
+                                 f"model: 1 gear, 0 sha1, 0 gf, 1..{buckets}"
+                                 f" fused")
+    elif d.gear != 1 or d.sha1 > math.ceil(chunks / 512) or d.gf > buckets \
+            or d.gf < 1 or d.sha1 < 1 or d.fused:
         raise AssertionError(f"put launches {d} outside the model: 1 gear, "
                              f"<= {math.ceil(chunks / 512)} sha1, 1..{buckets}"
                              f" gf for {chunks} chunks")
-    lines.append({"phase": "put", "files": len(stats),
+    put_art = artifacts(store)
+    lines.append({"phase": prefix + "put", "files": len(stats),
                   "mib": logical / 2**20, "seconds": put_s,
                   "mib_per_s": logical / 2**20 / put_s, "chunks": chunks,
                   "dedup_ratio": store.stats().dedup_ratio,
@@ -179,7 +203,7 @@ def main_path(sizes: Sizes, engine, sync) -> tuple[list[dict], dict]:
 
     before = LAUNCHES.snapshot()
     get_s = get_all(store, files)
-    lines.append({"phase": "get", "seconds": get_s,
+    lines.append({"phase": prefix + "get", "seconds": get_s,
                   "mib_per_s": logical / 2**20 / get_s,
                   "launches": dataclasses.asdict(LAUNCHES.delta(before))})
 
@@ -190,8 +214,9 @@ def main_path(sizes: Sizes, engine, sync) -> tuple[list[dict], dict]:
     d = LAUNCHES.delta(before)
     if d.gf < 1:
         raise AssertionError("degraded get launched no GF decode")
-    lines.append({"phase": "degraded_get", "cluster": victim.cluster_id,
-                  "seconds": deg_s, "launches": dataclasses.asdict(d)})
+    lines.append({"phase": prefix + "degraded_get",
+                  "cluster": victim.cluster_id, "seconds": deg_s,
+                  "launches": dataclasses.asdict(d)})
 
     victim.replace_nodes([0, 2, 4, 6, 8])
     before = LAUNCHES.snapshot()
@@ -203,12 +228,13 @@ def main_path(sizes: Sizes, engine, sync) -> tuple[list[dict], dict]:
     if not report.balanced or report.pieces_rebuilt < 1:
         raise AssertionError(f"repair did not balance: {report}")
     after_s = get_all(store, files)
-    lines.append({"phase": "repair", "seconds": rep_s,
+    lines.append({"phase": prefix + "repair", "seconds": rep_s,
                   "pieces_rebuilt": report.pieces_rebuilt,
                   "chunks_rebuilt": len(report.rebuilt),
                   "get_after_seconds": after_s,
-                  "launches": dataclasses.asdict(d)})
-    return lines, dict(KERNELS)
+                  "launches": dataclasses.asdict(d),
+                  "kernels": dict(KERNELS)})
+    return lines, dict(KERNELS), put_art
 
 
 def differential(sizes: Sizes, engine) -> dict:
@@ -248,6 +274,103 @@ def differential(sizes: Sizes, engine) -> dict:
             "numpy_seconds": t[0], "torch_seconds": t[1],
             "nodes": len(arts[0]["nodes"]), "records": len(arts[0]["records"]),
             "identical": True}
+
+
+def fused_paths(sizes: Sizes, engine) -> list[dict]:
+    """The store paths a fused engine changes, each on ``engine`` and on
+    the port's ``NumpyEngine`` with the same trace: identical results."""
+    from repro_torch.core import SEARSStore, StorageClass
+    from repro_torch.core.cache import CacheConfig
+    from repro_torch.core.workload import MixedClassConfig, mixed_class_trace
+    from repro_torch.kernels.launches import LAUNCHES
+
+    cap = sizes.diff_bytes
+    # mixed realtime + archival: 8 users x (4 hot files of cap/128 + 2
+    # cold of cap/32) = 3/4 of the cap, 24 MiB at full size
+    mixed = mixed_class_trace(MixedClassConfig(
+        n_users=8, hot_files_per_user=4, hot_kb=cap // 2**17,
+        cold_files_per_user=2, cold_kb=cap // 2**15, seed=41))
+    per_file = cap // 32
+    # 16 users x 2 files: one window over four shards
+    wide = make_files(dataclasses.replace(sizes, users=16, files_per_user=2,
+                                          file_bytes=per_file), seed=43)
+    # 8 users x 4 files: one scheduler flush, then their gets
+    narrow = make_files(dataclasses.replace(sizes, users=8, files_per_user=4,
+                                            file_bytes=per_file), seed=47)
+    wb_files = dict(list(narrow.items())[:4])
+
+    def via_scheduler(store, requests, gets=()):
+        sched = store.scheduler()
+        puts = [sched.submit_put(u, fl, storage_class=c)
+                for u, fl, c in requests]
+        sched.flush()
+        futs = [sched.submit_get(u, names) for u, names in gets]
+        sched.flush()
+        return ([[dataclasses.astuple(x) for x in f.result()] for f in puts]
+                + [[(hashlib.sha1(b).hexdigest(), dataclasses.astuple(st))
+                    for b, st in f.result()] for f in futs]), None
+
+    def writeback(store):
+        before = LAUNCHES.snapshot()
+        up = [[dataclasses.astuple(x) for x in store.put_files(u, fl)]
+              for u, fl in wb_files.items()]
+        commit = LAUNCHES.delta(before)
+        return (up, store.flush()), commit
+
+    realtime, archival = StorageClass.realtime(), StorageClass.archival()
+    cases = [
+        ("mixed_class", dict(classes=[realtime, archival]),
+         lambda st: via_scheduler(st, mixed),
+         [b for _, fl, _ in mixed for _, b in fl]),
+        ("shards", dict(classes=[realtime], shards=4),
+         lambda st: via_scheduler(st, [(u, fl, None)
+                                       for u, fl in wide.items()]),
+         [b for fl in wide.values() for _, b in fl]),
+        ("scheduler", dict(classes=[realtime]),
+         lambda st: via_scheduler(
+             st, [(u, fl, None) for u, fl in narrow.items()],
+             [(u, [n for n, _ in fl]) for u, fl in narrow.items()]),
+         [b for fl in narrow.values() for _, b in fl]),
+        ("writeback", dict(classes=[realtime], cache=CacheConfig(
+            capacity_bytes=4 * cap, write_back=True)), writeback,
+         [b for fl in wb_files.values() for _, b in fl]),
+    ]
+    lines = []
+    for name, kw, drive, blobs in cases:
+        logical = sum(len(b) for b in blobs)
+        if logical > cap:
+            raise AssertionError(f"fused_paths {name}: {logical} > {cap} "
+                                 f"bytes")
+        got, arts, secs = [], [], []
+        for eng in ("numpy", engine):
+            store = SEARSStore(engine=eng, sanitize=True, **kw)
+            before = LAUNCHES.snapshot()
+            t0 = time.perf_counter()
+            result, commit = drive(store)
+            secs.append(time.perf_counter() - t0)
+            got.append(result)
+            arts.append(artifacts(store))
+        d = LAUNCHES.delta(before)  # the fused store's whole case
+        if got[0] != got[1]:
+            raise AssertionError(f"fused_paths {name}: results diverged")
+        for key in ("nodes", "records", "listings", "stats"):
+            if arts[0][key] != arts[1][key]:
+                raise AssertionError(f"fused_paths {name}: {key} diverged")
+        line = {"name": name, "mib": logical / 2**20,
+                "numpy_seconds": secs[0], "fused_seconds": secs[1],
+                "launches": dataclasses.asdict(d),
+                "records": len(arts[0]["records"]), "identical": True}
+        if name == "writeback":
+            # the ack hashes on the staged path; the drain encodes
+            if commit.fused or commit.gf or commit.sha1 < 1 or d.fused \
+                    or d.gf < 1:
+                raise AssertionError(f"fused_paths writeback: commit "
+                                     f"{commit}, whole {d}")
+            line["commit_launches"] = dataclasses.asdict(commit)
+        elif d.fused < 1 or d.sha1 or d.gf:
+            raise AssertionError(f"fused_paths {name}: launches {d}")
+        lines.append(line)
+    return lines
 
 
 # -------------------------------------------------------------- kernels --
@@ -301,7 +424,8 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
     import torch
     from repro_torch.core import chunking, hashing, rs_code
     from repro_torch.core.classes import StorageClass
-    from repro_torch.kernels import gear_cdc, gf_matmul, ref, sha1, tables
+    from repro_torch.kernels import (fused_ingest, gear_cdc, gf_matmul, ref,
+                                     sha1, tables)
 
     run = timer(device)
     t = tables.tables(device)
@@ -384,10 +508,53 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
                      counts["sha1"], err, ms, plain,
                      nblk * 64 + len(msgs) * (4 + 20),
                      nblk * SHA1_OPS_PER_BLOCK, list(blocks.shape)))
+    del bt, ct, got, want
+
+    # K5: fused SHA-1 + (10,5) encode of one main-path bucket: Lp = 2048,
+    # lengths in (k*(Lp-512), k*Lp] plus the padding edges; against its
+    # plain version and against the staged K4 + K1 kernels
+    n, k = 10, 5
+    B, Lp = sizes.gf_batch, sizes.gf_len
+    code = rs_code.RSCode(n, k)
+    lens = rng.integers(k * (Lp - 512) + 1, k * Lp + 1, B)
+    lens[:5] = (0, 55, 56, 63, 64)
+    msgs = [rng.bytes(int(x)) for x in lens]
+    plens = [code.piece_len(len(m)) for m in msgs]
+    packed = np.stack([rs_code.pack_blob(m, k, L, Lp)
+                       for m, L in zip(msgs, plens)])
+    data = torch.from_numpy(packed).to(device)
+    nb = torch.from_numpy(lens.astype(np.int32)).to(device)
+    pl = torch.from_numpy(np.asarray(plens, np.int32)).to(device)
+    words, enc = fused_ingest.fused_ingest(G, data, nb, pl)
+    pw, pe = ref.fused_ingest_ref(Gt, data, nb, pl, t.gf_log, t.gf_exp)
+    err = max(maxerr(words, pw), maxerr(enc, pe))
+    blocks, cnt = hashing.sha1_pad_batch(msgs, max_len=k * Lp)
+    bt = torch.from_numpy(blocks.view(np.int32)).to(device)
+    ct = torch.from_numpy(cnt).to(device)
+    if not (torch.equal(words, sha1.sha1_digest_words(bt, ct))
+            and torch.equal(enc, gf_matmul.gf_matmul(G, data))):
+        raise AssertionError("fused ingest differs from staged SHA-1 + GF")
+    digests = hashing.digest_words_to_bytes(
+        words.cpu().numpy().view(np.uint32))
+    if digests != [hashlib.sha1(m).digest() for m in msgs]:
+        raise AssertionError("fused ingest SHA-1 differs from hashlib")
+    ms = run(lambda: fused_ingest.fused_ingest(G, data, nb, pl), reps)
+    staged = run(lambda: (sha1.sha1_digest_words(bt, ct),
+                          gf_matmul.gf_matmul(G, data)), reps)
+    plain = run(lambda: ref.fused_ingest_ref(Gt, data, nb, pl, t.gf_log,
+                                             t.gf_exp), 3, 1)
+    nblk = int(cnt.sum())
+    e = entry("fused_ingest", "fused_ingest.cu",
+              "src/repro/kernels/ops.py:320", counts["fused_ingest"], err,
+              ms, plain, B * Lp * (k + n) + B * (4 + 4 + 20),
+              nblk * SHA1_OPS_PER_BLOCK + 2.0 * B * Lp * n * k, [B, k, Lp])
+    e["staged_ms"] = staged
+    out.append(e)
     return out
 
 
-def profile_put(sizes: Sizes, engine, device, log_dir=None) -> dict:
+def profile_put(sizes: Sizes, engine, device, log_dir=None,
+                phase: str = "profile_put") -> dict:
     """The put window again, into a fresh store, under ``torch.profiler``:
     the device's busy time by kernel and copy, and its idle share."""
     import torch
@@ -416,18 +583,20 @@ def profile_put(sizes: Sizes, engine, device, log_dir=None) -> dict:
                   key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     if log_dir is not None:
-        (pathlib.Path(log_dir) / "chip_smoke_profile_put.txt").write_text(
+        (pathlib.Path(log_dir) / f"chip_smoke_{phase}.txt").write_text(
             avgs.table(sort_by="self_device_time_total", row_limit=40))
-    return {"phase": "profile_put", "wall_seconds": wall,
+    return {"phase": phase, "wall_seconds": wall,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / 1e3 / wall,
             "by_name_ms": [[k, n, ms] for k, n, ms in rows[:10]]}
 
 
 # ------------------------------------------------------------------ run --
-def run(sizes: Sizes, device, engine, card: str = "",
+def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
         log_dir=None) -> list[dict]:
-    """Every phase; raises on the first failure.  Returns the JSON lines."""
+    """Every phase; raises on the first failure.  Returns the kernel
+    entries.  ``engine`` and ``fused_engine`` are the staged and the
+    fused engine (specs or instances)."""
     import torch
     from repro_torch.kernels import _build
 
@@ -450,23 +619,44 @@ def run(sizes: Sizes, device, engine, card: str = "",
                   "built_now": _build.BUILD_INFO["built"]})
     for line in lines:
         emit(line)
-    path_lines, counts = main_path(sizes, engine, sync)
+    path_lines, counts, put_art = main_path(sizes, engine, sync)
     for line in path_lines:
         emit(line)
-    missing = [k for k, v in counts.items() if k != "gear_hash" and v < 1]
-    if device.type == "cuda" and missing:
-        raise AssertionError(f"main path never launched {missing}")
+    # the fused path: same window, the store's artifacts must be equal
+    fused_lines, fused_counts, fused_art = main_path(
+        sizes, fused_engine, sync, prefix="fused_")
+    for key in ("nodes", "records", "listings", "stats"):
+        if fused_art[key] != put_art[key]:
+            raise AssertionError(f"fused put: {key} differ from the kernel "
+                                 f"store's")
+    fused_lines[0]["identical_to_kernel_put"] = True
+    del put_art, fused_art
+    for line in fused_lines:
+        emit(line)
+    if device.type == "cuda":
+        missing = [k for k in ("gf_matmul", "gear_fire", "sha1")
+                   if counts[k] < 1]
+        missing += [f"fused path: {k}" for k in
+                    ("fused_ingest", "gear_fire", "gf_matmul")
+                    if fused_counts[k] < 1]
+        if missing:
+            raise AssertionError(f"main paths never launched {missing}")
+    counts = dict(counts, fused_ingest=fused_counts["fused_ingest"])
     kern = kernels(sizes, device, counts)
     emit({"phase": "kernels", "kernels": [
         {k: e[k] for k in ("name", "launches", "max_abs_err", "ms",
-                           "plain_ms", "bytes", "bound_ms", "bound_by")}
+                           "plain_ms", "staged_ms", "bytes", "bound_ms",
+                           "bound_by") if k in e}
         for e in kern]})
     bad = [e["name"] for e in kern if e["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: "
                              f"{bad}")
     emit(differential(sizes, engine))
+    emit({"phase": "fused_paths", "paths": fused_paths(sizes, fused_engine)})
     emit(profile_put(sizes, engine, device, log_dir))
+    emit(profile_put(sizes, fused_engine, device, log_dir,
+                     phase="profile_fused_put"))
     return kern
 
 
@@ -487,13 +677,14 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(SRC))
     card = nvidia_smi()
-    kern = run(Sizes(), torch.device("cuda"), "kernel", card, args.log_dir)
+    kern = run(Sizes(), torch.device("cuda"), "kernel", "fused", card,
+               args.log_dir)
     # the main path's kernel launch counts count toward 'launches'; the
     # comparison launches above them do not (main_path read them first)
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for e in kern]})
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "staged_ms")
+        if k in e} for e in kern]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

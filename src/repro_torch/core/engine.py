@@ -14,8 +14,11 @@ that data plane's interface; two implementations:
   and the SHA-1 kernel for chunk ids.  It runs on the CUDA device unless
   the caller passes ``device="cpu"``, which runs each kernel's plain
   torch version -- same batching, same bytes.
+* ``TorchFusedEngine`` -- ``TorchEngine`` plus the fused ingest: a put
+  window's SHA-1 ids and RS encode run as one launch per piece-length
+  bucket (``kernels/csrc/fused_ingest.cu``).
 
-Both engines produce identical bytes, so every store-level artifact --
+All engines produce identical bytes, so every store-level artifact --
 piece placement, dedup ratio, ``StoreStats`` -- is engine-invariant.
 """
 
@@ -140,8 +143,8 @@ class CodingEngine(abc.ABC):
         """Chunk ids + RS pieces for (code, blob) jobs, input order.
 
         Staged reference semantics: hash everything, then encode
-        everything.  A fused engine overrides this with the single-
-        residency fused path (not ported yet).
+        everything.  ``TorchFusedEngine`` overrides this with the fused
+        one-launch-per-bucket path.
         """
         ids = self.hash_chunks([blob for _, blob in jobs])
         return ids, self.encode_blobs_multi(jobs)
@@ -343,13 +346,65 @@ class TorchEngine(CodingEngine):
         return ops.rs_decode_blobs(code, jobs, device=self.device)
 
 
+class TorchFusedEngine(TorchEngine):
+    """TorchEngine plus the fused ingest path.
+
+    Mirrors the JAX reference's ``FusedEngine``.  It inherits every
+    batched entry point; ``hash_encode_blobs_multi`` becomes the fused
+    SHA-1 + GF-encode dispatch (``kernels.ops.fused_hash_encode_blobs``):
+    each chunk goes to the device packed (B, k, L) once and one launch
+    per piece-length bucket returns both its id and its pieces, so a put
+    window costs 1 gear + O(piece-length buckets) launches instead of
+    1 gear + SHA-1 batches + O(length buckets) GF.  Encoding is
+    speculative -- every unique chunk of the window is encoded before the
+    dedup lookup decides whether its pieces are needed.  The store takes
+    the staged ``hash_chunks`` + ``encode_blobs_multi`` path when
+    ``supports_fused_ingest`` is false (a custom ``hash_fn``), and under
+    write-back, whose ack must not pay the encode.
+    """
+
+    name = "fused"
+
+    @property
+    def supports_fused_ingest(self) -> bool:  # type: ignore[override]
+        # the fused kernel computes SHA-1; a custom id function has no
+        # device twin, so the store must take the staged path
+        return self.hash_fn is hashing.chunk_id
+
+    def hash_encode_blobs_multi(self, jobs: list[tuple[RSCode, bytes]]
+                                ) -> tuple[list[bytes], list[list[bytes]]]:
+        if not self.supports_fused_ingest:
+            return super().hash_encode_blobs_multi(jobs)
+        from repro_torch.kernels import ops
+        ids: list = [None] * len(jobs)
+        pieces: list = [None] * len(jobs)
+        # intra-window duplicates (same code, same bytes) cost one lane;
+        # RSCode is a frozen dataclass, so value-equal codes coalesce
+        rep: dict = {}
+        for i, (code, blob) in enumerate(jobs):
+            rep.setdefault((code, blob), i)
+        groups: dict = {}
+        for (code, _), i in rep.items():
+            groups.setdefault(code, []).append(i)
+        for code, idxs in groups.items():
+            gids, gpieces = ops.fused_hash_encode_blobs(
+                code, [jobs[i][1] for i in idxs], device=self.device)
+            for i, cid, ps in zip(idxs, gids, gpieces):
+                ids[i], pieces[i] = cid, ps
+        for i, (code, blob) in enumerate(jobs):
+            if ids[i] is None:
+                j = rep[(code, blob)]
+                ids[i], pieces[i] = ids[j], pieces[j]
+        return ids, pieces
+
+
 def make_engine(spec, hash_fn=hashing.chunk_id) -> CodingEngine:
     """Resolve an engine spec to a ``CodingEngine``.
 
     Accepted specs: a ``CodingEngine`` instance, ``'numpy'`` (per-chunk
-    host path), or ``'kernel'`` / ``'torch'`` (``TorchEngine`` on the
-    CUDA device; raises without CUDA).  ``'fused'`` is the fused
-    SHA-1 + encode ingest engine, which this package does not have yet.
+    host path), ``'kernel'`` / ``'torch'`` (``TorchEngine``) or
+    ``'fused'`` (``TorchFusedEngine``).  The last two run on the CUDA
+    device and raise without CUDA.
     """
     if isinstance(spec, CodingEngine):
         return spec
@@ -358,7 +413,5 @@ def make_engine(spec, hash_fn=hashing.chunk_id) -> CodingEngine:
     if spec in ("kernel", "torch"):
         return TorchEngine(hash_fn)
     if spec == "fused":
-        raise NotImplementedError(
-            "engine='fused' (fused SHA-1 + GF ingest) is not ported yet; "
-            "it is the next slice of the port (TorchFusedEngine)")
+        return TorchFusedEngine(hash_fn)
     raise ValueError(f"unknown coding engine {spec!r}")

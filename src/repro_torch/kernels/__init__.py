@@ -1,6 +1,7 @@
 """The storage data plane's kernels: hand-written CUDA for Hopper.
 
-Each kernel module (``gf_matmul``, ``gear_cdc``, ``sha1``) holds the
+Each kernel module (``gf_matmul``, ``gear_cdc``, ``sha1``,
+``fused_ingest``) holds the
 wrapper of one CUDA source under ``csrc/`` beside its plain torch version
 (``ref``); ``ops`` is the dispatch layer the engines call, ``_build``
 compiles and loads the sources, ``tables`` holds the fixed tables and

@@ -24,7 +24,8 @@ import tempfile
 import time
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
-SOURCES = ("gf_matmul.cu", "gear_cdc.cu", "sha1.cu")
+SOURCES = ("gf_matmul.cu", "gear_cdc.cu", "sha1.cu", "fused_ingest.cu")
+HEADERS = ("sears_device.cuh",)  # included by the sources; hashed with them
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -42,6 +43,8 @@ _SIGNATURES = {
     "sears_gf_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sears_gear": [_P, _P, ctypes.c_uint32, _P, ctypes.c_longlong, _I, _P],
     "sears_sha1": [_P, _P, _P, _I, _I, _P],
+    "sears_fused_ingest": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P],
 }
 
 
@@ -59,7 +62,7 @@ def _nvcc() -> str:
 def source_digest() -> str:
     """Hash of every source and flag the library is built from."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(ARCH + FLAGS).encode())

@@ -22,15 +22,13 @@
 // special (m == 0 or d == 0 gives 0): the byte 0 gets the log 512, so any
 // sum with it indexes the zero tail of the extended exp table -- no
 // branch.  Tables come from the wrapper (kernels/tables.py); the kernel
-// allocates nothing.
+// allocates nothing.  The table set-up and the tile body live in
+// sears_device.cuh, shared with fused_ingest.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE_L 512
-#define THREADS (TILE_L / 4)
-#define ROW_GROUP 16
-#define KEXP_LEN 1040
+#include "sears_device.cuh"
 
 __global__ void gf_matmul_kernel(const uint8_t* __restrict__ M,
                                  const int16_t* __restrict__ klog,
@@ -39,67 +37,28 @@ __global__ void gf_matmul_kernel(const uint8_t* __restrict__ M,
                                  uint8_t* __restrict__ out,
                                  int r, int k, int L, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* slog = reinterpret_cast<uint16_t*>(smem);  // 256 entries
-  uint16_t* smlog = slog + 256;                         // r * k entries
-  uint8_t* sexp = reinterpret_cast<uint8_t*>(smlog + r * k);
-
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    slog[i] = static_cast<uint16_t>(klog[i]);
-  for (int i = threadIdx.x; i < KEXP_LEN; i += blockDim.x) sexp[i] = kexp[i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < r * k; i += blockDim.x) smlog[i] = slog[M[i]];
-  __syncthreads();
-
+  const sears::GfTables t = sears::gf_load_tables(smem, M, klog, kexp, r, k);
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
-  const size_t col = static_cast<size_t>(tile) * TILE_L + threadIdx.x * 4;
-  const uint8_t* d = data + static_cast<size_t>(b) * k * L + col;
-  uint8_t* o = out + static_cast<size_t>(b) * r * L + col;
-
-  for (int i0 = 0; i0 < r; i0 += ROW_GROUP) {
-    uint32_t acc[ROW_GROUP];
-#pragma unroll
-    for (int g = 0; g < ROW_GROUP; ++g) acc[g] = 0;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t w =
-          *reinterpret_cast<const uint32_t*>(d + static_cast<size_t>(j) * L);
-      const uint32_t l0 = slog[w & 255u];
-      const uint32_t l1 = slog[(w >> 8) & 255u];
-      const uint32_t l2 = slog[(w >> 16) & 255u];
-      const uint32_t l3 = slog[w >> 24];
-#pragma unroll
-      for (int g = 0; g < ROW_GROUP; ++g) {
-        if (i0 + g < r) {
-          const uint32_t lm = smlog[(i0 + g) * k + j];
-          acc[g] ^= static_cast<uint32_t>(sexp[lm + l0]) |
-                    (static_cast<uint32_t>(sexp[lm + l1]) << 8) |
-                    (static_cast<uint32_t>(sexp[lm + l2]) << 16) |
-                    (static_cast<uint32_t>(sexp[lm + l3]) << 24);
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < ROW_GROUP; ++g) {
-      if (i0 + g < r)
-        *reinterpret_cast<uint32_t*>(o + static_cast<size_t>(i0 + g) * L) =
-            acc[g];
-    }
-  }
+  const size_t col = static_cast<size_t>(tile) * SEARS_TILE_L +
+                     threadIdx.x * 4;
+  sears::gf_tile(t, data + static_cast<size_t>(b) * k * L + col,
+                 out + static_cast<size_t>(b) * r * L + col, r, k, L);
 }
 
-// M: (r, k) uint8; klog: (256,) int16; kexp: (KEXP_LEN,) uint8;
+// M: (r, k) uint8; klog: (256,) int16; kexp: (SEARS_KEXP_LEN,) uint8;
 // data: (B, k, L) uint8 and out: (B, r, L) uint8, contiguous, 4-byte
 // aligned, L % TILE_L == 0.  Returns cudaGetLastError() after the launch.
 extern "C" int sears_gf_matmul(const void* M, const void* klog,
                                const void* kexp, const void* data, void* out,
                                int B, int r, int k, int L, void* stream) {
-  const int tiles = L / TILE_L;
+  const int tiles = L / SEARS_TILE_L;
   const long long blocks = static_cast<long long>(B) * tiles;
-  if (B <= 0 || tiles <= 0 || blocks > 0x7fffffffLL || L % TILE_L != 0)
+  if (B <= 0 || tiles <= 0 || blocks > 0x7fffffffLL ||
+      L % SEARS_TILE_L != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (256 + static_cast<size_t>(r) * k) * sizeof(uint16_t) +
-                      KEXP_LEN;
-  gf_matmul_kernel<<<static_cast<unsigned>(blocks), THREADS, smem,
+  const size_t smem = sears::gf_smem_bytes(r, k);
+  gf_matmul_kernel<<<static_cast<unsigned>(blocks), SEARS_GF_THREADS, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(M), static_cast<const int16_t*>(klog),
       static_cast<const uint8_t*>(kexp), static_cast<const uint8_t*>(data),

@@ -16,26 +16,23 @@
 //
 // Design: one thread per message, looping over that message's real
 // blocks only (the reference masks padded blocks instead), with the
-// message schedule as a rolling 16-word window in registers and the 80
-// rounds fully unrolled.  Blocks of 32 threads spread the messages over
-// as many SMs as possible.
+// compression of sears_device.cuh (shared with fused_ingest.cu).  Blocks
+// of 32 threads spread the messages over as many SMs as possible.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 32
+#include "sears_device.cuh"
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int c) {
-  return __funnelshift_l(x, x, c);
-}
+#define THREADS 32
 
 __global__ void sha1_kernel(const uint32_t* __restrict__ blocks,
                             const int32_t* __restrict__ counts,
                             uint32_t* __restrict__ out, int B, int M) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  uint32_t h0 = 0x67452301u, h1 = 0xEFCDAB89u, h2 = 0x98BADCFEu,
-           h3 = 0x10325476u, h4 = 0xC3D2E1F0u;
+  uint32_t h[5];
+  sears::sha1_init(h);
   const int nb = min(max(counts[b], 0), M);
   const uint4* msg =
       reinterpret_cast<const uint4*>(blocks + static_cast<size_t>(b) * M * 16);
@@ -47,34 +44,11 @@ __global__ void sha1_kernel(const uint32_t* __restrict__ blocks,
       w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z;
       w[4 * q + 3] = v.w;
     }
-    uint32_t a = h0, bb = h1, c = h2, d = h3, e = h4;
-#pragma unroll
-    for (int t = 0; t < 80; ++t) {
-      uint32_t wt;
-      if (t < 16) {
-        wt = w[t];
-      } else {
-        wt = rotl(w[(t - 3) & 15] ^ w[(t - 8) & 15] ^ w[(t - 14) & 15] ^
-                      w[t & 15], 1);
-        w[t & 15] = wt;
-      }
-      uint32_t f, k;
-      if (t < 20) {
-        f = (bb & c) | (~bb & d); k = 0x5A827999u;
-      } else if (t < 40) {
-        f = bb ^ c ^ d; k = 0x6ED9EBA1u;
-      } else if (t < 60) {
-        f = (bb & c) | (bb & d) | (c & d); k = 0x8F1BBCDCu;
-      } else {
-        f = bb ^ c ^ d; k = 0xCA62C1D6u;
-      }
-      const uint32_t tmp = rotl(a, 5) + f + e + k + wt;
-      e = d; d = c; c = rotl(bb, 30); bb = a; a = tmp;
-    }
-    h0 += a; h1 += bb; h2 += c; h3 += d; h4 += e;
+    sears::sha1_compress(h, w);
   }
   uint32_t* o = out + static_cast<size_t>(b) * 5;
-  o[0] = h0; o[1] = h1; o[2] = h2; o[3] = h3; o[4] = h4;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) o[i] = h[i];
 }
 
 // blocks: (B, M, 16) uint32, 16-byte aligned; counts: (B,) int32;

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.kernels import gear_cdc, gf_matmul, sha1
+from repro_torch.kernels import fused_ingest, gear_cdc, gf_matmul, sha1
 from repro_torch.kernels.launches import LAUNCHES, TRACES
 from repro_torch.kernels.tables import load_tables  # noqa: F401 (public API)
 
@@ -229,3 +229,67 @@ def sha1_digest_words(blocks, counts, device="cuda") -> torch.Tensor:
         TRACES.sha1 += 1
     return sha1.sha1_digest_words(_upload(blocks.view(np.int32), device),
                                   _upload(counts, device))
+
+
+# ----------------------------------------------------------- fused ingest --
+# One launch per piece-length bucket computing SHA-1 chunk ids AND the RS
+# code pieces of the same chunks: the packed (B, k, Lp) bytes go to the
+# device once and the kernel pads each SHA-1 message itself, instead of
+# the staged path's SHA-1 launch over host-padded blocks plus a GF launch.
+# Counted in ``LAUNCHES.fused`` (neither .sha1 nor .gf ticks).
+
+def _sha1_block_width(lens: list[int], max_len: int) -> int:
+    """Block axis of ``hashing.sha1_pad_batch(group, max_len)`` for a
+    bucket of messages of ``lens`` bytes padded with empty ones to ``Bp``:
+    the power of two of the bucket's need, clamped to the cap.  The
+    reference's jitted dispatch keys on it, so ``TRACES`` does too."""
+    need = max([(n + 8) // 64 + 1 for n in lens] + [1])
+    cap = (max_len + 9 + 63) // 64
+    return min(1 << (need - 1).bit_length(), cap)
+
+
+def fused_hash_encode_blobs(code, blobs: list[bytes], device="cuda"
+                            ) -> tuple[list[bytes], list[list[bytes]]]:
+    """Fused SHA-1 + RS encode of a blob batch -> (ids, pieces per blob).
+
+    Blobs are bucketed by padded piece length exactly like
+    ``rs_encode_blobs`` (quantum TILE_L, power-of-two batch, no cap), so
+    a window costs O(length buckets) fused launches.  Only each bucket's
+    real rows come back to the host.  Byte-identical to running
+    ``sha1_digests`` and ``rs_encode_blobs`` separately.
+    """
+    from repro_torch.core import rs_code
+    if not blobs:
+        return [], []
+    device = torch.device(device)
+    G = np.ascontiguousarray(np.asarray(
+        rs_code.generator_matrix(code.n, code.k), dtype=np.uint8))
+    piece_lens = [code.piece_len(len(b)) for b in blobs]
+    ids: list[bytes | None] = [None] * len(blobs)
+    pieces: list[list[bytes] | None] = [None] * len(blobs)
+    for Lp, idxs in rs_code.bucket_by_piece_len(
+            piece_lens, gf_matmul.TILE_L).items():
+        nreal, Bp = len(idxs), _pow2(len(idxs))
+        data = np.zeros((nreal, code.k, Lp), dtype=np.uint8)
+        for row, i in enumerate(idxs):
+            data[row] = rs_code.pack_blob(blobs[i], code.k, piece_lens[i], Lp)
+        lens = [len(blobs[i]) for i in idxs]
+        nbytes = np.zeros(Bp, dtype=np.int32)
+        nbytes[:nreal] = lens
+        plens = np.ones(Bp, dtype=np.int32)
+        plens[:nreal] = [piece_lens[i] for i in idxs]
+        LAUNCHES.fused += 1
+        Mb = _sha1_block_width(lens, code.k * Lp)
+        if _new_shape(("fused", device.type, G.shape, (Bp, Mb, 16),
+                       (Bp, code.k, Lp))):
+            TRACES.fused += 1
+        words, enc = fused_ingest.fused_ingest(
+            G, _upload(data, device, Bp), _upload(nbytes, device),
+            _upload(plens, device))
+        digests = hashing.digest_words_to_bytes(words_to_host(words[:nreal]))
+        enc = enc[:nreal].cpu().numpy()
+        for row, i in enumerate(idxs):
+            L = piece_lens[i]
+            ids[i] = digests[row]
+            pieces[i] = [enc[row, j, :L].tobytes() for j in range(code.n)]
+    return ids, pieces  # type: ignore[return-value]

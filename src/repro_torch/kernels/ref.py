@@ -163,3 +163,60 @@ def sha1_ref(blocks: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     words = _sha1_words_loop(u32_values(blocks),
                              counts.to(blocks.device, torch.int64).reshape(-1))
     return u32_bits(words)
+
+
+# ---------------------------------------------------------------------------
+# Fused ingest: SHA-1 ids and GF encode of one piece-length bucket
+# ---------------------------------------------------------------------------
+
+def _sha1_pad_packed(data: torch.Tensor, nbytes: torch.Tensor,
+                     piece_lens: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SHA-1 message blocks of chunks packed as ``rs_code.pack_blob`` lays
+    them out, padded as ``hashing.sha1_pad_blocks`` pads a message.
+
+    data: (B, k, Lp) uint8; message byte i of row b sits at
+    ``data[b, i // L_b, i % L_b]`` with ``L_b = piece_lens[b]``.
+    nbytes, piece_lens: (B,) message lengths and piece lengths (clamped
+    to the slab, as the kernel clamps them).
+    returns ((B, Mb, 16) big-endian word values as int64, (B,) real block
+    counts), Mb the largest count.
+    """
+    B, k, Lp = data.shape
+    dev = data.device
+    L = piece_lens.to(dev, torch.int64).reshape(-1).clamp(1, Lp)
+    n = torch.minimum(nbytes.to(dev, torch.int64).reshape(-1).clamp(min=0),
+                      k * L)
+    counts = (n + 8) // 64 + 1
+    Mb = int(counts.max()) if B else 1
+    i = torch.arange(Mb * 64, device=dev)[None, :]
+    inside = i < n[:, None]
+    src = torch.where(inside, (i // L[:, None]) * Lp + i % L[:, None], 0)
+    msg = torch.gather(data.reshape(B, k * Lp).to(torch.int64), 1, src)
+    msg = torch.where(inside, msg, 0)
+    msg = torch.where(i == n[:, None], 0x80, msg)
+    # the bit length, big-endian, in the last 8 bytes of the last block
+    bits = n * 8
+    last = counts * 64 - 8
+    for t in range(8):
+        msg.scatter_(1, (last + t)[:, None],
+                     ((bits >> (8 * (7 - t))) & 0xFF)[:, None])
+    b4 = msg.reshape(B, Mb, 16, 4)
+    words = (b4[..., 0] << 24) | (b4[..., 1] << 16) | (b4[..., 2] << 8) \
+        | b4[..., 3]
+    return words, counts
+
+
+def fused_ingest_ref(G, data: torch.Tensor, nbytes: torch.Tensor,
+                     piece_lens: torch.Tensor,
+                     gf_log: torch.Tensor | None = None,
+                     gf_exp: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SHA-1 chunk ids and RS code pieces of one packed bucket.
+
+    G: (n, k) generator matrix; data: (B, k, Lp) uint8 packed chunks;
+    nbytes, piece_lens: (B,) each chunk's length and piece length.
+    returns ((B, 5) digest words as int32 bits, (B, n, Lp) uint8 pieces).
+    """
+    blocks, counts = _sha1_pad_packed(data, nbytes, piece_lens)
+    return sha1_ref(blocks, counts), gf_matmul_ref(G, data, gf_log, gf_exp)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.core import engine as tengine
-from repro_torch.kernels import gear_cdc, gf_matmul, ref, sha1
+from repro_torch.kernels import fused_ingest, gear_cdc, gf_matmul, ref, sha1
 from repro_torch.kernels.launches import KERNELS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -50,6 +50,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
+        for name in ("repro_torch.kernels.fused_ingest",
+                     "repro_torch.core.workload"):
+            assert name in sys.modules, name
         print("imported", len([m for m in sys.modules
                                if m.startswith("repro_torch")]))
     """))
@@ -72,8 +75,12 @@ def test_torch_engine_needs_cuda(monkeypatch):
         tengine.make_engine("torch")
     assert tengine.TorchEngine(device="cpu").device.type == "cpu"
     assert isinstance(tengine.make_engine("numpy"), tengine.NumpyEngine)
-    with pytest.raises(NotImplementedError, match="fused"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         tengine.make_engine("fused")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tengine.TorchFusedEngine()
+    fused = tengine.TorchFusedEngine(device="cpu")
+    assert fused.supports_fused_ingest and fused.device.type == "cpu"
 
 
 def _calls(monkeypatch, module, names):
@@ -98,23 +105,31 @@ def _wrapper_calls(dev) -> list:
         rng.integers(0, 256, 9000, dtype=np.uint8)).to(dev)
     blocks = torch.zeros((2, 1, 16), dtype=torch.int32, device=dev)
     counts = torch.ones(2, dtype=torch.int32, device=dev)
+    packed = torch.zeros((2, 5, 512), dtype=torch.uint8, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
     return [lambda: gf_matmul.gf_matmul(np.eye(5, dtype=np.uint8), data),
             lambda: gear_cdc.gear_fire(stream, 0xFF),
             lambda: gear_cdc.gear_hash(stream),
-            lambda: sha1.sha1_digest_words(blocks, counts)]
+            lambda: sha1.sha1_digest_words(blocks, counts),
+            lambda: fused_ingest.fused_ingest(
+                np.ones((10, 5), dtype=np.uint8), packed, lens, lens)]
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     seen = _calls(monkeypatch, ref,
-                  ["gf_matmul_ref", "gear_hash_ref", "sha1_ref"])
+                  ["gf_matmul_ref", "gear_hash_ref", "sha1_ref",
+                   "fused_ingest_ref"])
     launched = _calls(monkeypatch, gf_matmul, ["launch"]) \
         + _calls(monkeypatch, gear_cdc, ["launch"]) \
-        + _calls(monkeypatch, sha1, ["launch"])
+        + _calls(monkeypatch, sha1, ["launch"]) \
+        + _calls(monkeypatch, fused_ingest, ["launch"])
     before = dict(KERNELS)
     out = [call() for call in _wrapper_calls(torch.device("cpu"))]
-    assert all(t.device.type == "cpu" for t in out)
+    flat = [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
+    assert all(t.device.type == "cpu" for t in flat)
     assert seen == ["gf_matmul_ref", "gear_hash_ref", "gear_hash_ref",
-                    "sha1_ref"]
+                    "sha1_ref", "fused_ingest_ref", "sha1_ref",
+                    "gf_matmul_ref"]
     assert launched == [] and KERNELS == before
 
 
@@ -123,7 +138,8 @@ def test_non_cpu_tensors_never_take_the_plain_versions(monkeypatch):
     anything but a CUDA tensor (here ``meta`` tensors); the plain
     versions are never called."""
     seen = _calls(monkeypatch, ref,
-                  ["gf_matmul_ref", "gear_hash_ref", "sha1_ref"])
+                  ["gf_matmul_ref", "gear_hash_ref", "sha1_ref",
+                   "fused_ingest_ref"])
     for call in _wrapper_calls(torch.device("meta")):
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -143,3 +159,9 @@ def test_launch_checks_refuse_bad_inputs():
         sha1.launch(torch.zeros((1, 1, 16), dtype=torch.int32),
                     torch.ones(1, dtype=torch.int32),
                     torch.empty((1, 5), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ingest.launch(M, cpu, torch.ones(1, dtype=torch.int32),
+                            torch.ones(1, dtype=torch.int32),
+                            torch.empty((1, 5), dtype=torch.int32),
+                            torch.empty((1, 10, 512), dtype=torch.uint8),
+                            None)
