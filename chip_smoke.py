@@ -45,7 +45,38 @@ through the entry points a user calls, on the card:
 10. ``profile_put``, ``profile_fused_put``: the put window once more on
    each engine, into a fresh store, under ``torch.profiler``: the
    device's busy time by kernel and copy, and its idle share.
+11. ``checkpoint``: llama3.2-1b at full width, built on the card from
+   ``torch.Generator`` seed 0 (~2.47 GB of bf16), saved as step 1
+   through ``SEARSCheckpointManager`` into a store on
+   ``engine="fused"`` (one SEARS file per leaf), restored and held equal
+   leaf for leaf; then step 2 with only ``final_norm`` changed, whose
+   dedup saving must be near 1.
+12. ``serve``: the restored weights serve 4 prompts of 1024 tokens
+   (seed 0): prefill, then greedy decode to 32 tokens with a KV cache of
+   1056, in bf16 with the reference's bf16 cache.  Then one prefill
+   over the prompt plus the 31 tokens fed back: the k/v that decode
+   wrote into the cache must equal the same slots of that prefill's
+   cache, layer by layer, and the last decode step's logits its logits,
+   each within a share of the largest |value| (``SERVE_CACHE_TOL``,
+   ``SERVE_LOGIT_TOL``), with the same argmax where the top two logits
+   lie further apart than that; the same again on the prompts of seeds
+   1 and 2 (``SERVE_SEEDS``).
+13. ``flash``: the flash-attention kernel (K6) through
+   ``ops.flash_attention`` on layer 0's q (recomputed from the prompt)
+   and k, v (the serve prefill's cache); on a long shape (B=1,
+   S=T=8192, 32 query and 8 KV heads, hd 64, bf16, causal: the model's
+   attention takes its blockwise branch there); on fp32 copies of
+   those two; and on small shapes with a window, without causal, and
+   at hd 128 and 256.  At
+   each shape it is held against its plain version and against the
+   port's ``layers.attention`` within 2e-2 (bf16) or 2e-5 (fp32),
+   relative and absolute, the tolerances of ``tests/test_flash_attn.py``;
+   then timed at the long shape beside its plain version and beside
+   ``F.scaled_dot_product_attention`` (``library_ms``, never called by
+   the port).
 
+K1-K5 must equal their plain versions exactly; K6 sums floats in
+another order than its plain version, so it is held to the tolerance.
 Each phase prints one JSON line; then the ``{"kernels": [...]}`` line,
 the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
@@ -58,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -71,10 +103,28 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth,
-# and the 32-bit rate outside the tensor cores (the integer and bitwise
-# work of these kernels has no faster path).
+# the 32-bit rate outside the tensor cores (the integer and bitwise work
+# of the storage kernels has no faster path), and the dense bf16 tensor
+# core rate (attention's products could run there).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_TC_PER_S = 989e12
+# K6 against its plain version and the model's attention: the
+# tolerances of tests/test_flash_attn.py (rtol = atol).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The serve check: the last decode step against one prefill over the
+# prompt and the fed-back tokens, on the prompts of each seed.  The two
+# paths round to bf16 at different places (matmuls of B rows against
+# B x 1055), and 16 layers of random weights carry it forward.  Each
+# tolerance is a share of the compared tensor's largest |value|: the bf16
+# k/v that decode wrote into the cache, layer by layer, against the same
+# slots of the extended prefill's cache; and the last logits.  Each is
+# twice the largest reading over the three seeds on an H100, rounded up
+# (cache 0.0245 at layer 15, logits 0.0211: PERF.md, the serve check);
+# a cache one slot off reads above 1.
+SERVE_SEEDS = (0, 1, 2)
+SERVE_CACHE_TOL = 5e-2
+SERVE_LOGIT_TOL = 5e-2
 # SHA-1 operations per 64-byte block: 64 schedule words x (3 xor + 1
 # rotate) + 80 rounds x (f: 2.75 on average + 4 adds + 2 rotates) + 5.
 SHA1_OPS_PER_BLOCK = 64 * 4 + 80 * 8.75 + 5
@@ -93,6 +143,11 @@ class Sizes:
     sha1_msgs: int = 512
     sha1_max: int = 8192
     reps: int = 20
+    reduced: bool = False       # llama32_1b.reduced() (CPU rehearsal)
+    serve_batch: int = 4
+    prompt_len: int = 1024
+    gen_tokens: int = 32
+    long_seq: int = 8192
 
 
 def emit(obj) -> None:
@@ -591,6 +646,299 @@ def profile_put(sizes: Sizes, engine, device, log_dir=None,
             "by_name_ms": [[k, n, ms] for k, n, ms in rows[:10]]}
 
 
+# ---------------------------------------------------------------- model --
+def checkpoint_phase(sizes: Sizes, device, fused_engine, sync
+                     ) -> tuple[dict, object, dict]:
+    """The model's weights through SEARS: save, restore (bit for bit),
+    and a second step that differs in one small leaf."""
+    import torch
+    from repro_torch.checkpoint import SEARSCheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
+    from repro_torch.models import api
+    from repro_torch.tree import flatten_with_path
+
+    cfg = get_config("llama32_1b")
+    if sizes.reduced:
+        cfg = cfg.reduced()
+    model = api.get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    sync()
+    init_s = time.perf_counter() - t0
+    mgr = SEARSCheckpointManager(engine=fused_engine)
+    reset_kernels()
+    before = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    s1 = mgr.save(1, params)
+    save_s = time.perf_counter() - t0
+    save_launches = LAUNCHES.delta(before)
+    save_kernels = dict(KERNELS)
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in flatten_with_path(params))
+    if s1["bytes"] != nbytes or save_launches.gear < 1 \
+            or save_launches.fused < 1:
+        raise AssertionError(f"checkpoint save: {s1}, launches "
+                             f"{save_launches}")
+    reset_kernels()
+    before = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    restored = mgr.restore(params)
+    sync()
+    restore_s = time.perf_counter() - t0
+    restore_launches = LAUNCHES.delta(before)
+    restore_kernels = dict(KERNELS)
+    for (path, a), (_, b) in zip(flatten_with_path(restored),
+                                 flatten_with_path(params)):
+        if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
+            raise AssertionError(f"checkpoint leaf {'/'.join(path)} differs "
+                                 f"after restore")
+    params2 = dict(params, final_norm=params["final_norm"] + 1.0)
+    t0 = time.perf_counter()
+    s2 = mgr.save(2, params2)
+    save2_s = time.perf_counter() - t0
+    if s2["dedup_saving"] < 0.99:
+        raise AssertionError(f"step 2 deduped only {s2['dedup_saving']}")
+    # the store's millions of piece objects hold reference cycles: free
+    # them now, not in a collection that lands inside the serve timing
+    del params, params2, mgr
+    gc.collect()
+    leaves = flatten_with_path(restored)
+    line = {"phase": "checkpoint", "arch": cfg.name,
+            "params": cfg.param_count(), "leaves": len(leaves),
+            "largest_leaf_bytes": max(t.numel() * t.element_size()
+                                      for _, t in leaves),
+            "init_seconds": init_s, "save_seconds": save_s,
+            "save_mib_per_s": s1["bytes"] / 2**20 / save_s,
+            "restore_seconds": restore_s,
+            "restore_mib_per_s": s1["bytes"] / 2**20 / restore_s,
+            "bytes": s1["bytes"], "bytes_after_dedup": s1["bytes_after_dedup"],
+            "save_launches": dataclasses.asdict(save_launches),
+            "save_kernels": save_kernels,
+            "restore_launches": dataclasses.asdict(restore_launches),
+            "restore_kernels": restore_kernels,
+            "restore_identical": True,
+            "step2_seconds": save2_s,
+            "step2_bytes_after_dedup": s2["bytes_after_dedup"],
+            "step2_dedup_saving": s2["dedup_saving"]}
+    return line, model, restored
+
+
+def decode_vs_prefill(model, params, tokens, n: int, device, sync) -> dict:
+    """Serve ``tokens`` to ``n`` greedy tokens, then one prefill over the
+    prompt and the n-1 tokens fed back.  Decode step i fed token i at
+    slot P+i, so the slots P..P+n-2 of both caches hold the same tokens'
+    k/v, and the last step's logits and the prefill's are for the same
+    position.  Errors are shares of the compared tensor's largest
+    |value|; the cache's per layer."""
+    import torch
+    from repro_torch.launch.serve import serve
+
+    B, P = tokens.shape
+    res = serve(model, params, tokens, n, device)
+    gen = res["tokens"]
+    t0 = time.perf_counter()
+    ext, ext_cache = model.prefill(params, {"tokens": torch.cat(
+        [tokens, gen[:, :n - 1]], dim=1)})
+    sync()
+    ext_s = time.perf_counter() - t0
+    logits, ext = res["logits"].float(), ext.float()
+    scale = float(ext.abs().max())
+    d = (logits - ext).abs()
+    top2 = ext.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > SERVE_LOGIT_TOL * scale
+    agree = logits.argmax(-1) == ext.argmax(-1)
+    out = {"seed": None, "extended_prefill_seconds": ext_s,
+           "logit_scale": scale, "logit_max_abs_err": float(d.max()),
+           "logit_rel_err": float(d.max()) / scale,
+           "logit_rms_rel_err": float(d.pow(2).mean().sqrt()
+                                      / ext.pow(2).mean().sqrt()),
+           "argmax_agrees": bool(agree.all()),
+           "argmax_decided_rows": int(decided.sum()),
+           "argmax_decided_agree": bool(agree[decided].all()),
+           "finite": bool(torch.isfinite(logits).all())}
+    dims = (1, 2, 3, 4)
+    for name in ("k", "v"):
+        got = res["cache"][name][:, :, P:P + n - 1].float()
+        want = ext_cache[name][:, :, P:P + n - 1].float()
+        rel = (got - want).abs().amax(dim=dims) / want.abs().amax(dim=dims)
+        out[f"cache_rel_err_{name}"] = rel.tolist()
+    # the check must see a cache one slot off: layer 0's k, shifted
+    got = res["cache"]["k"][0, :, P:P + n - 2].float()
+    want = ext_cache["k"][0, :, P + 1:P + n - 1].float()
+    out["shifted_rel_err"] = float((got - want).abs().max()
+                                   / want.abs().max())
+    out["ok"] = (out["finite"] and out["argmax_decided_agree"]
+                 and out["logit_rel_err"] <= SERVE_LOGIT_TOL
+                 and max(out["cache_rel_err_k"] + out["cache_rel_err_v"])
+                 <= SERVE_CACHE_TOL
+                 and out["shifted_rel_err"] > SERVE_CACHE_TOL)
+    return {"res": res, "check": out}
+
+
+def serve_phase(sizes: Sizes, device, model, params, sync
+                ) -> tuple[dict, tuple]:
+    """Prefill + greedy decode on the restored weights, on the prompts
+    of each of ``SERVE_SEEDS``; the KV cache and the logits checked
+    against one longer prefill.  Returns the line (``ok`` false if a
+    check failed) and layer 0's (q, k, v) of the first prompts'
+    prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
+    checks = []
+    with torch.no_grad():
+        for seed in SERVE_SEEDS:
+            tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, size=(B, P))).to(device)
+            r = decode_vs_prefill(model, params, tokens, n, device, sync)
+            r["check"]["seed"] = seed
+            checks.append(r["check"])
+            if seed != SERVE_SEEDS[0]:
+                del r
+                continue
+            res = r["res"]
+            gen = res["tokens"]
+            # layer 0's attention inputs: k, v as the prefill cached them,
+            # q from the same layer input the prefill saw
+            p0 = model._layer(params, 0)
+            h = L.rms_norm(params["embed"][tokens], p0["ln1"], cfg.norm_eps)
+            q = L.gqa_query(h, p0["attn"], cfg,
+                            torch.arange(P, device=device))
+            k = res["cache"]["k"][0, :, :P].contiguous()
+            v = res["cache"]["v"][0, :, :P].contiguous()
+            del r, res["cache"]
+    ok = bool(gen.shape == (B, n) and ((gen >= 0) & (gen < cfg.vocab_size))
+              .all()) and all(c["ok"] for c in checks)
+    steps = n - 1
+    line = {"phase": "serve", "batch": B, "prompt_len": P,
+            "cache_len": P + n, "tokens": n,
+            "prefill_seconds": res["prefill_s"],
+            "prefill_tok_per_s": B * P / res["prefill_s"],
+            "decode_seconds": res["decode_s"],
+            "decode_tok_per_s": B * steps / res["decode_s"],
+            "cache_tol": SERVE_CACHE_TOL, "logit_tol": SERVE_LOGIT_TOL,
+            "decode_vs_prefill": checks,
+            "first_tokens": gen[:, :8].tolist(), "ok": ok}
+    return line, (q, k, v)
+
+
+def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """Query-key pairs the masks leave live (queries the last S of T)."""
+    import numpy as np
+    qp = np.arange(T - S, T, dtype=np.int64)
+    hi = qp if causal else np.full(S, T - 1)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(S)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_phase(sizes: Sizes, device, layer0, reps: int) -> tuple[dict, dict]:
+    """K6 against its plain version and the model's attention at every
+    shape; timed at the long shape.  Returns the line and the K6 row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.launches import KERNELS, reset_kernels
+    from repro_torch.models import layers as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(13)
+
+    def rand(B, S, T, H, KV, hd, dtype):
+        return tuple(torch.from_numpy(rng.standard_normal(
+            shp, dtype=np.float32)).to(device, dtype)
+            for shp in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    Ls = sizes.long_seq
+    long = rand(1, Ls, Ls, 32, 8, 64, bf16)
+    # the two main-path shapes again as fp32 copies of the same q/k/v: at
+    # 2e-5 a mask or tile fault shows there, under bf16's 2e-2 it may not
+    cases = [("serve_layer0", layer0, True, 0),
+             ("long", long, True, 0),
+             ("serve_layer0_fp32", tuple(x.float() for x in layer0), True, 0),
+             ("long_fp32", tuple(x.float() for x in long), True, 0),
+             ("window", rand(1, 512, 512, 32, 8, 64, f32), True, 128),
+             ("non_causal", rand(1, 256, 256, 32, 8, 64, f32), False, 0),
+             ("hd128", rand(1, 300, 300, 4, 2, 128, f32), True, 0),
+             ("hd256", rand(2, 256, 768, 8, 1, 256, bf16), True, 0)]
+    reset_kernels()
+    shapes, failed = [], []
+    for name, (q, k, v), causal, window in cases:
+        B, S, H, hd = q.shape
+        T = k.shape[1]
+        dtype = str(q.dtype).split(".")[1]
+        tol = FLASH_TOL[dtype]
+        with torch.no_grad():
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            plain = ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window)
+            model = L.attention(q, k, v, q_pos=torch.arange(T - S, T,
+                                                            device=device),
+                                kv_pos=torch.arange(T, device=device),
+                                window=window, causal=causal)
+        row = {"name": name, "shape": [B, S, T, H, k.shape[2], hd],
+               "dtype": dtype, "causal": causal, "window": window,
+               "tol": tol, "model_path": "direct" if S * T
+               <= L.ATTN_DIRECT_LIMIT else "blockwise"}
+        for other, want in (("plain", plain), ("model", model)):
+            d = (got.float() - want.float()).abs()
+            row[f"max_abs_err_{other}"] = float(d.max())
+            ok = bool((d <= tol + tol * want.float().abs()).all())
+            row[f"within_tol_{other}"] = ok
+            if not ok or not bool(torch.isfinite(got).all()):
+                failed.append(f"{name} vs {other}")
+        shapes.append(row)
+        del got, plain, model
+    launches = KERNELS["flash_attn"]
+    if failed:
+        raise AssertionError(f"flash kernel outside tolerance: {failed}")
+
+    # time the long shape: the kernel, its plain version, and SDPA
+    (q, k, v) = long
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    run = timer(device)
+    with torch.no_grad():
+        ms = run(lambda: ops.flash_attention(q, k, v), reps)
+        plain_ms = run(lambda: ref.flash_attention_ref(q, k, v), 3, 1)
+        model_ms = run(lambda: L.attention(
+            q, k, v, q_pos=torch.arange(T - S, T, device=device),
+            kv_pos=torch.arange(T, device=device)), 3, 1)
+        library_ms = None
+        if device.type == "cuda":
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            library_ms = run(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops_n = 4.0 * B * H * hd * live_pairs(S, T, True, 0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops_n / PEAK_BF16_TC_PER_S * 1e3
+    long_row = shapes[1]
+    kernel_row = {"name": "flash_attn", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+                  "replaces": "src/repro/kernels/flash_attn.py:37",
+                  "launches": launches,
+                  "max_abs_err": long_row["max_abs_err_plain"],
+                  "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(t_bytes, t_ops),
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                  "library_ms": library_ms, "model_attention_ms": model_ms,
+                  "tol": long_row["tol"], "shape": long_row["shape"],
+                  "bytes": nbytes, "ops": ops_n}
+    line = {"phase": "flash", "launches": launches, "shapes": shapes,
+            "long_ms": ms, "long_plain_ms": plain_ms,
+            "long_model_attention_ms": model_ms,
+            "long_library_ms": library_ms,
+            "long_tflop_per_s": ops_n / ms / 1e9}
+    return line, kernel_row
+
+
 # ------------------------------------------------------------------ run --
 def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
         log_dir=None) -> list[dict]:
@@ -657,7 +1005,22 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     emit(profile_put(sizes, engine, device, log_dir))
     emit(profile_put(sizes, fused_engine, device, log_dir,
                      phase="profile_fused_put"))
-    return kern
+    # the model: weights through SEARS, served, and K6 on its attention
+    ckpt_line, model, params = checkpoint_phase(sizes, device, fused_engine,
+                                                sync)
+    emit(ckpt_line)
+    serve_line, layer0 = serve_phase(sizes, device, model, params, sync)
+    emit(serve_line)
+    del params, model
+    gc.collect()
+    flash_line, flash_row = flash_phase(sizes, device, layer0, sizes.reps)
+    emit(flash_line)
+    if not serve_line["ok"]:
+        raise AssertionError("serve: decode and the extended prefill "
+                             "disagree (see the serve line)")
+    if device.type == "cuda" and flash_row["launches"] < 1:
+        raise AssertionError("the flash phase never launched K6")
+    return kern + [flash_row]
 
 
 def main(argv=None) -> int:
@@ -683,8 +1046,8 @@ def main(argv=None) -> int:
     # comparison launches above them do not (main_path read them first)
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "staged_ms")
-        if k in e} for e in kern]})
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "staged_ms",
+        "tol") if k in e} for e in kern]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
-"""The storage data plane's kernels: hand-written CUDA for Hopper.
+"""The port's kernels: hand-written CUDA for Hopper.
 
 Each kernel module (``gf_matmul``, ``gear_cdc``, ``sha1``,
-``fused_ingest``) holds the
+``fused_ingest`` for the storage data plane, ``flash_attn`` for the
+models' attention) holds the
 wrapper of one CUDA source under ``csrc/`` beside its plain torch version
 (``ref``); ``ops`` is the dispatch layer the engines call, ``_build``
 compiles and loads the sources, ``tables`` holds the fixed tables and

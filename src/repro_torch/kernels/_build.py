@@ -24,7 +24,8 @@ import tempfile
 import time
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
-SOURCES = ("gf_matmul.cu", "gear_cdc.cu", "sha1.cu", "fused_ingest.cu")
+SOURCES = ("gf_matmul.cu", "gear_cdc.cu", "sha1.cu", "fused_ingest.cu",
+           "flash_attn.cu")
 HEADERS = ("sears_device.cuh",)  # included by the sources; hashed with them
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
@@ -45,6 +46,10 @@ _SIGNATURES = {
     "sears_sha1": [_P, _P, _P, _I, _I, _P],
     "sears_fused_ingest": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P],
+    # (q, k, v, out, dtype, B, S, T, H, KV, hd, strides, scale, causal,
+    #  window, stream)
+    "sears_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                         ctypes.c_float, _I, _I, _P],
 }
 
 

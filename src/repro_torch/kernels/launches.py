@@ -75,7 +75,7 @@ def delta_all(since: dict[str, LaunchCounter]) -> dict[str, LaunchCounter]:
 # on the plain (CPU) path -- so a run that reads these after zeroing
 # them proves which kernels its path really went through.
 KERNELS: dict[str, int] = {"gf_matmul": 0, "gear_fire": 0, "gear_hash": 0,
-                           "sha1": 0, "fused_ingest": 0}
+                           "sha1": 0, "fused_ingest": 0, "flash_attn": 0}
 
 
 def reset_kernels() -> None:

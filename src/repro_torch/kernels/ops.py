@@ -1,4 +1,5 @@
-"""Public entry points of the storage data plane's kernels.
+"""Public entry points of the port's kernels: the storage data plane's,
+and ``flash_attention`` for the models.
 
 Mirrors the JAX reference's ``repro.kernels.ops``, with ``device=`` in
 place of ``impl=``: on a CUDA device every entry point launches the
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.kernels import fused_ingest, gear_cdc, gf_matmul, sha1
+from repro_torch.kernels import (flash_attn, fused_ingest, gear_cdc,
+                                 gf_matmul, sha1)
 from repro_torch.kernels.launches import LAUNCHES, TRACES
 from repro_torch.kernels.tables import load_tables  # noqa: F401 (public API)
 
@@ -293,3 +295,18 @@ def fused_hash_encode_blobs(code, blobs: list[bytes], device="cuda"
             ids[i] = digests[row]
             pieces[i] = [enc[row, j, :L].tobytes() for j in range(code.n)]
     return ids, pieces  # type: ignore[return-value]
+
+
+# ----------------------------------------------------------- attention ----
+# searslint: ignore[counter-launch] -- not a storage data-plane dispatch
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None) -> torch.Tensor:
+    """Fused GQA flash attention: the hand-written kernel on a CUDA
+    tensor, its plain version on a CPU one.
+
+    q: (B,S,H,hd); k,v: (B,T,KV,hd), the queries the last S of T
+    positions.  Not a storage dispatch, so no ``LAUNCHES`` tick; the
+    kernel wrapper counts its launches in ``KERNELS["flash_attn"]``.
+    """
+    return flash_attn.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)

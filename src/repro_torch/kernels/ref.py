@@ -220,3 +220,56 @@ def fused_ingest_ref(G, data: torch.Tensor, nbytes: torch.Tensor,
     """
     blocks, counts = _sha1_pad_packed(data, nbytes, piece_lens)
     return sha1_ref(blocks, counts), gf_matmul_ref(G, data, gf_log, gf_exp)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (GQA, causal / sliding window), in the model's layout
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # the reference's mask value: a fully masked row stays finite
+# query rows per step of the plain version: bounds its (rows, T) scores,
+# 537 MB of fp32 at 32 heads and T = 8192
+FLASH_Q_CHUNK = 512
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
+    """What ``repro/kernels/flash_attn.py``'s kernel computes.
+
+    q: (B, S, H, hd); k, v: (B, T, KV, hd) with H a multiple of KV (query
+    head h reads KV head h // (H // KV)).  The queries are the last S of
+    the T positions (``q_offset = T - S``).  Masks, as the kernel applies
+    them: keys past T (none here: nothing is padded), then causal
+    (``k <= q``), then the window (``k > q - window``, with or without
+    causal).  Scores and softmax in fp32 with masked scores at
+    ``NEG_INF``; the unnormalised p is rounded to v's dtype before P.V,
+    and the row sum takes p before rounding.  Rows run in chunks of
+    ``FLASH_Q_CHUNK`` so a long S keeps its (S, T) scores bounded.
+    returns (B, S, H, hd) in q's dtype.
+    """
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale or (1.0 / np.sqrt(hd))
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    kv_pos = torch.arange(T, device=dev)
+    out = torch.empty((B, S, H, v.shape[-1]), dtype=q.dtype, device=dev)
+    for s0 in range(0, S, FLASH_Q_CHUNK):
+        s1 = min(S, s0 + FLASH_Q_CHUNK)
+        qg = q[:, s0:s1].float().reshape(B, s1 - s0, KV, G, hd)
+        s = torch.einsum("bskgh,btkh->bkgst", qg, kf) * scale
+        q_pos = (T - S) + torch.arange(s0, s1, device=dev)
+        mask = torch.ones((s1 - s0, T), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kv_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        denom = p.sum(dim=-1).clamp_min(1e-30)  # (B, KV, G, s)
+        acc = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype).float(), vf)
+        o = acc / denom.permute(0, 3, 1, 2)[..., None]
+        out[:, s0:s1] = o.reshape(B, s1 - s0, H, -1).to(q.dtype)
+    return out

@@ -1,0 +1,83 @@
+"""The port's flash attention (K6) against the JAX reference's kernel.
+
+On the CPU the port's ``ops.flash_attention`` runs its plain version
+(``ref.flash_attention_ref``); the reference runs its Pallas kernel in
+interpret mode.  Same numpy inputs from a seed; the tolerances are
+``tests/test_flash_attn.py``'s: 2e-5 in fp32 (sums in another order),
+2e-2 in bf16 (p rounded to bf16 before P.V in both, in another order).
+The CUDA kernel itself is held against the same plain version on the
+card by ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attn as jflash
+from repro_torch.kernels import flash_attn, ops, ref
+from repro_torch.kernels.launches import KERNELS
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(B, S, T, H, KV, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd), dtype=np.float32),
+            rng.standard_normal((B, T, KV, hd), dtype=np.float32),
+            rng.standard_normal((B, T, KV, hd), dtype=np.float32))
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,dtype,window", [
+    (1, 256, 256, 2, 2, 32, "float32", 0),    # MHA single block
+    (1, 300, 300, 2, 1, 32, "float32", 0),    # unaligned seq (padding path)
+    (1, 512, 512, 2, 2, 32, "float32", 128),  # sliding window
+    (1, 256, 768, 4, 4, 32, "bfloat16", 0),   # more KV than Q, bf16
+])
+def test_port_flash_matches_pallas_kernel(B, S, T, H, KV, hd, dtype, window):
+    q, k, v = _inputs(B, S, T, H, KV, hd)
+    want = jflash.flash_attention(
+        *(jnp.asarray(x).astype(_JNP[dtype]) for x in (q, k, v)),
+        causal=True, window=window, interpret=True)
+    before = dict(KERNELS)
+    got = ops.flash_attention(
+        *(torch.from_numpy(x).to(_TORCH[dtype]) for x in (q, k, v)),
+        causal=True, window=window)
+    assert KERNELS == before  # the CPU path launches nothing
+    assert got.dtype == _TORCH[dtype] and got.shape == (B, S, H, hd)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_port_flash_non_causal_matches_pallas_kernel():
+    q, k, v = _inputs(1, 256, 256, 2, 2, 32, seed=1)
+    want = jflash.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                  causal=False, interpret=True)
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_plain_version_chunks_rows_without_changing_them(monkeypatch):
+    """``FLASH_Q_CHUNK`` only bounds the score transient."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 130, 200, 4, 2, 64))
+    whole = ref.flash_attention_ref(q, k, v, window=50)  # one chunk
+    for chunk in (7, 64):
+        monkeypatch.setattr(ref, "FLASH_Q_CHUNK", chunk)
+        torch.testing.assert_close(
+            ref.flash_attention_ref(q, k, v, window=50), whole, rtol=0,
+            atol=0)
+
+
+def test_non_cpu_tensors_go_to_the_kernel_launch():
+    meta = {"device": "meta"}
+    q = torch.empty((1, 64, 4, 64), **meta)
+    kv = torch.empty((1, 64, 2, 64), **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attn.flash_attention(q, kv, kv)

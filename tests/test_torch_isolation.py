@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch.core import engine as tengine
-from repro_torch.kernels import fused_ingest, gear_cdc, gf_matmul, ref, sha1
+from repro_torch.kernels import (flash_attn, fused_ingest, gear_cdc, gf_matmul,
+                                 ref, sha1)
 from repro_torch.kernels.launches import KERNELS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -51,7 +52,13 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
         for name in ("repro_torch.kernels.fused_ingest",
-                     "repro_torch.core.workload"):
+                     "repro_torch.core.workload",
+                     "repro_torch.kernels.flash_attn",
+                     "repro_torch.configs.llama32_1b",
+                     "repro_torch.models.transformer",
+                     "repro_torch.models.api",
+                     "repro_torch.checkpoint.manager",
+                     "repro_torch.launch.serve"):
             assert name in sys.modules, name
         print("imported", len([m for m in sys.modules
                                if m.startswith("repro_torch")]))
@@ -107,29 +114,33 @@ def _wrapper_calls(dev) -> list:
     counts = torch.ones(2, dtype=torch.int32, device=dev)
     packed = torch.zeros((2, 5, 512), dtype=torch.uint8, device=dev)
     lens = torch.ones(2, dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=dev)
     return [lambda: gf_matmul.gf_matmul(np.eye(5, dtype=np.uint8), data),
             lambda: gear_cdc.gear_fire(stream, 0xFF),
             lambda: gear_cdc.gear_hash(stream),
             lambda: sha1.sha1_digest_words(blocks, counts),
             lambda: fused_ingest.fused_ingest(
-                np.ones((10, 5), dtype=np.uint8), packed, lens, lens)]
+                np.ones((10, 5), dtype=np.uint8), packed, lens, lens),
+            lambda: flash_attn.flash_attention(q, kv, kv)]
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     seen = _calls(monkeypatch, ref,
                   ["gf_matmul_ref", "gear_hash_ref", "sha1_ref",
-                   "fused_ingest_ref"])
+                   "fused_ingest_ref", "flash_attention_ref"])
     launched = _calls(monkeypatch, gf_matmul, ["launch"]) \
         + _calls(monkeypatch, gear_cdc, ["launch"]) \
         + _calls(monkeypatch, sha1, ["launch"]) \
-        + _calls(monkeypatch, fused_ingest, ["launch"])
+        + _calls(monkeypatch, fused_ingest, ["launch"]) \
+        + _calls(monkeypatch, flash_attn, ["launch"])
     before = dict(KERNELS)
     out = [call() for call in _wrapper_calls(torch.device("cpu"))]
     flat = [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
     assert all(t.device.type == "cpu" for t in flat)
     assert seen == ["gf_matmul_ref", "gear_hash_ref", "gear_hash_ref",
                     "sha1_ref", "fused_ingest_ref", "sha1_ref",
-                    "gf_matmul_ref"]
+                    "gf_matmul_ref", "flash_attention_ref"]
     assert launched == [] and KERNELS == before
 
 
@@ -139,7 +150,7 @@ def test_non_cpu_tensors_never_take_the_plain_versions(monkeypatch):
     versions are never called."""
     seen = _calls(monkeypatch, ref,
                   ["gf_matmul_ref", "gear_hash_ref", "sha1_ref",
-                   "fused_ingest_ref"])
+                   "fused_ingest_ref", "flash_attention_ref"])
     for call in _wrapper_calls(torch.device("meta")):
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -165,3 +176,7 @@ def test_launch_checks_refuse_bad_inputs():
                             torch.empty((1, 5), dtype=torch.int32),
                             torch.empty((1, 10, 512), dtype=torch.uint8),
                             None)
+    q = torch.zeros((1, 64, 4, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attn.launch(q, q[:, :, :2], q[:, :, :2], torch.empty_like(q),
+                          scale=0.125, causal=True, window=0)
