@@ -62,21 +62,30 @@ through the entry points a user calls, on the card:
    lie further apart than that; the same again on the prompts of seeds
    1 and 2 (``SERVE_SEEDS``).
 13. ``flash``: the flash-attention kernel (K6) through
-   ``ops.flash_attention`` on layer 0's q (recomputed from the prompt)
-   and k, v (the serve prefill's cache); on a long shape (B=1,
-   S=T=8192, 32 query and 8 KV heads, hd 64, bf16, causal: the model's
-   attention takes its blockwise branch there); on fp32 copies of
-   those two; and on small shapes with a window, without causal, and
-   at hd 128 and 256.  At
-   each shape it is held against its plain version and against the
-   port's ``layers.attention`` within 2e-2 (bf16) or 2e-5 (fp32),
-   relative and absolute, the tolerances of ``tests/test_flash_attn.py``;
-   then timed at the long shape beside its plain version and beside
-   ``F.scaled_dot_product_attention`` (``library_ms``, never called by
-   the port).
+   ``ops.flash_attention``, which sends bf16 to the tensor-core kernel
+   (``KERNELS["flash_attn"]``) and fp32 to the CUDA-core kernel
+   (``KERNELS["flash_attn_fp32"]``); each shape must launch its dtype's
+   kernel and no other.  Shapes: layer 0's q (recomputed from the
+   prompt) and k, v (the serve prefill's cache); a long shape (B=1,
+   S=T=8192, 32 query and 8 KV heads, hd 64, causal: the model's
+   attention takes its blockwise branch there); small shapes with a
+   window, without causal, at hd 128 and at hd 256.  In bf16 every
+   shape runs on the seeds of ``FLASH_SEEDS`` and is held to its plain
+   version element by element within ``FLASH_BF16_C`` * 2^-8 * |plain|
+   + ``FLASH_BF16_A`` (the line prints the readings the constants come
+   from); at layer 0's and the long shape a control, the plain version
+   with the keys shifted by one slot, must read above that gate.  fp32
+   copies of every shape but hd 256 are held within 2e-5; both dtypes
+   are held against ``layers.attention`` within 2e-2 (bf16) or 2e-5
+   (fp32), the tolerances of ``tests/test_flash_attn.py``.  Then K6 is
+   timed at the long shape in bf16 and fp32 and at layer 0's shape,
+   each beside ``F.scaled_dot_product_attention`` (``library_ms``, never
+   called by the port), with its plain version and the model's
+   attention at the long shape; the rows give TFLOP/s, the share of the
+   bound and ``ptxas -v``'s registers and spills for each head dim.
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
-another order than its plain version, so it is held to the tolerance.
+another order than its plain version, so it is held to its gate.
 Each phase prints one JSON line; then the ``{"kernels": [...]}`` line,
 the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
@@ -94,6 +103,7 @@ import hashlib
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -109,9 +119,21 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_TC_PER_S = 989e12
-# K6 against its plain version and the model's attention: the
-# tolerances of tests/test_flash_attn.py (rtol = atol).
+# K6 against the model's attention (both dtypes) and the fp32 kernel
+# against its plain version: the tolerances of tests/test_flash_attn.py
+# (rtol = atol).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The bf16 kernel against its plain version, element by element:
+# |got - plain| <= FLASH_BF16_C * 2^-8 * |plain| + FLASH_BF16_A.  Rule
+# (PERF.md, written before the run that read them): twice the largest
+# reading over every bf16 shape on FLASH_SEEDS, rounded up to one
+# significant digit.  Readings: a, the largest |got - plain| where
+# |plain| < FLASH_GATE_SPLIT (there the relative term is under 2.5e-4);
+# c, the largest |got - plain| / (2^-8 |plain|) where |plain| >= it.
+FLASH_SEEDS = (13, 14)
+FLASH_GATE_SPLIT = 2.0 ** -4
+FLASH_BF16_C = 9.0
+FLASH_BF16_A = 3e-3
 # The serve check: the last decode step against one prefill over the
 # prompt and the fed-back tokens, on the prompts of each seed.  The two
 # paths round to bf16 at different places (matmuls of B rows against
@@ -835,108 +857,243 @@ def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_phase(sizes: Sizes, device, layer0, reps: int) -> tuple[dict, dict]:
+def round_up_1sd(x: float) -> float:
+    """x rounded up to one significant digit (0.00196 -> 0.002)."""
+    if x <= 0:
+        return 0.0
+    e = math.floor(math.log10(x))
+    return math.ceil(round(x / 10.0 ** e, 9)) * 10.0 ** e
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes of K6's kernels from the ``ptxas -v``
+    build log: {"bf16" | "fp32": {hd: {...}}}."""
+    kinds = {"flash_wgmma_kernel": "bf16", "flash_fp32_kernel": "fp32"}
+    out: dict = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_[a-z0-9]+_kernel)ILi(\d+)E", m.group(1))
+            cur = (out.setdefault(kinds[k.group(1)], {}).setdefault(
+                k.group(2), {}) if k and k.group(1) in kinds else None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def flash_phase(sizes: Sizes, device, layer0, reps: int
+                ) -> tuple[dict, list[dict]]:
     """K6 against its plain version and the model's attention at every
-    shape; timed at the long shape.  Returns the line and the K6 row."""
+    shape, the bf16 kernel under the output-scaled gate, the fp32 kernel
+    at 2e-5; timed at the long shape (bf16 and fp32) and at layer 0's.
+    Returns the line and the K6 rows (bf16, fp32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.launches import KERNELS, reset_kernels
     from repro_torch.models import layers as L
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.default_rng(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cuda = device.type == "cuda"
 
-    def rand(B, S, T, H, KV, hd, dtype):
+    def rand(rng, B, S, T, H, KV, hd, dtype):
         return tuple(torch.from_numpy(rng.standard_normal(
             shp, dtype=np.float32)).to(device, dtype)
             for shp in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    def cast(qkv, dtype):
+        return tuple(x.to(dtype) for x in qkv)
+
+    # (name, (q, k, v), causal, window, seed): every bf16 shape on each
+    # of FLASH_SEEDS (layer 0's on its one prompt), the fp32 copies once
     Ls = sizes.long_seq
-    long = rand(1, Ls, Ls, 32, 8, 64, bf16)
-    # the two main-path shapes again as fp32 copies of the same q/k/v: at
-    # 2e-5 a mask or tile fault shows there, under bf16's 2e-2 it may not
-    cases = [("serve_layer0", layer0, True, 0),
-             ("long", long, True, 0),
-             ("serve_layer0_fp32", tuple(x.float() for x in layer0), True, 0),
-             ("long_fp32", tuple(x.float() for x in long), True, 0),
-             ("window", rand(1, 512, 512, 32, 8, 64, f32), True, 128),
-             ("non_causal", rand(1, 256, 256, 32, 8, 64, f32), False, 0),
-             ("hd128", rand(1, 300, 300, 4, 2, 128, f32), True, 0),
-             ("hd256", rand(2, 256, 768, 8, 1, 256, bf16), True, 0)]
+    cases = [("serve_layer0", layer0, True, 0, 0)]
+    fp32_cases = [("serve_layer0_fp32", cast(layer0, f32), True, 0, 0)]
+    for seed in FLASH_SEEDS:
+        rng = np.random.default_rng(seed)
+        long = rand(rng, 1, Ls, Ls, 32, 8, 64, bf16)
+        small = [("window", rand(rng, 1, 512, 512, 32, 8, 64, f32), True,
+                  128),
+                 ("non_causal", rand(rng, 1, 256, 256, 32, 8, 64, f32),
+                  False, 0),
+                 ("hd128", rand(rng, 1, 300, 300, 4, 2, 128, f32), True, 0)]
+        cases.append(("long", long, True, 0, seed))
+        cases += [(f"{nm}_bf16", cast(x, bf16), c, w, seed)
+                  for nm, x, c, w in small]
+        cases.append(("hd256", rand(rng, 2, 256, 768, 8, 1, 256, bf16),
+                      True, 0, seed))
+        if seed == FLASH_SEEDS[0]:
+            long0 = long
+            fp32_cases.append(("long_fp32", cast(long, f32), True, 0, seed))
+            fp32_cases += [(nm, x, c, w, seed) for nm, x, c, w in small]
+    cases += fp32_cases
+
     reset_kernels()
     shapes, failed = [], []
-    for name, (q, k, v), causal, window in cases:
+    for name, (q, k, v), causal, window, seed in cases:
         B, S, H, hd = q.shape
         T = k.shape[1]
         dtype = str(q.dtype).split(".")[1]
-        tol = FLASH_TOL[dtype]
+        kernel = "flash_attn" if q.dtype == bf16 else "flash_attn_fp32"
+        before = dict(KERNELS)
         with torch.no_grad():
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            launched = {n: KERNELS[n] - before[n]
+                        for n in ("flash_attn", "flash_attn_fp32")}
             plain = ref.flash_attention_ref(q, k, v, causal=causal,
                                             window=window)
             model = L.attention(q, k, v, q_pos=torch.arange(T - S, T,
                                                             device=device),
                                 kv_pos=torch.arange(T, device=device),
                                 window=window, causal=causal)
-        row = {"name": name, "shape": [B, S, T, H, k.shape[2], hd],
+        row = {"name": name, "seed": seed, "shape": [B, S, T, H, k.shape[2],
+                                                     hd],
                "dtype": dtype, "causal": causal, "window": window,
-               "tol": tol, "model_path": "direct" if S * T
+               "launched": launched, "model_path": "direct" if S * T
                <= L.ATTN_DIRECT_LIMIT else "blockwise"}
-        for other, want in (("plain", plain), ("model", model)):
-            d = (got.float() - want.float()).abs()
-            row[f"max_abs_err_{other}"] = float(d.max())
-            ok = bool((d <= tol + tol * want.float().abs()).all())
-            row[f"within_tol_{other}"] = ok
-            if not ok or not bool(torch.isfinite(got).all()):
-                failed.append(f"{name} vs {other}")
+        if cuda and (launched[kernel] < 1
+                     or sum(launched.values()) != launched[kernel]):
+            failed.append(f"{name}: launched {launched}, not {kernel}")
+        if not bool(torch.isfinite(got).all()):
+            failed.append(f"{name}: not finite")
+        d = (got.float() - plain.float()).abs()
+        row["max_abs_err_plain"] = float(d.max())
+        if q.dtype == bf16:
+            # |got - plain| <= c 2^-8 |plain| + a, element by element
+            pa = plain.float().abs()
+            gate = FLASH_BF16_C * 2.0 ** -8 * pa + FLASH_BF16_A
+            small = pa < FLASH_GATE_SPLIT
+            row["a_read"] = float(d[small].max()) if small.any() else 0.0
+            row["c_read"] = (float((d[~small] / (2.0 ** -8 * pa[~small]))
+                                   .max()) if (~small).any() else 0.0)
+            row["gate_use"] = float((d / gate).max())
+            row["within_gate_plain"] = row["gate_use"] <= 1.0
+            if name in ("serve_layer0", "long"):
+                # the control: the causal mask one key off (keys shifted
+                # by one slot) must read above the gate
+                with torch.no_grad():
+                    off = ref.flash_attention_ref(
+                        q, k.roll(-1, 1), v.roll(-1, 1), causal=causal,
+                        window=window)
+                row["control_gate_use"] = float(
+                    ((off.float() - plain.float()).abs() / gate).max())
+                if row["control_gate_use"] <= 1.0:
+                    failed.append(f"{name}: the shifted-mask control "
+                                  f"passes the gate")
+                del off
+            if not row["within_gate_plain"]:
+                failed.append(f"{name} (seed {seed}) vs plain")
+        else:
+            tol = FLASH_TOL[dtype]
+            row["within_tol_plain"] = bool(
+                (d <= tol + tol * plain.float().abs()).all())
+            if not row["within_tol_plain"]:
+                failed.append(f"{name} vs plain")
+        # against the model's attention: the reference's tolerances
+        tol = FLASH_TOL[dtype]
+        dm = (got.float() - model.float()).abs()
+        row["max_abs_err_model"] = float(dm.max())
+        row["within_tol_model"] = bool(
+            (dm <= tol + tol * model.float().abs()).all())
+        if not row["within_tol_model"]:
+            failed.append(f"{name} (seed {seed}) vs model")
         shapes.append(row)
-        del got, plain, model
-    launches = KERNELS["flash_attn"]
+        del got, plain, model, d, dm
+    launches = {n: KERNELS[n] for n in ("flash_attn", "flash_attn_fp32")}
     if failed:
-        raise AssertionError(f"flash kernel outside tolerance: {failed}")
+        raise AssertionError(f"flash kernel outside its gate: {failed}")
+    bf16_rows = [r for r in shapes if r["dtype"] == "bfloat16"]
+    c_read = max(r["c_read"] for r in bf16_rows)
+    a_read = max(r["a_read"] for r in bf16_rows)
+    readings = {"c_read": c_read, "a_read": a_read,
+                "c_by_rule": round_up_1sd(2 * c_read),
+                "a_by_rule": round_up_1sd(2 * a_read)}
 
-    # time the long shape: the kernel, its plain version, and SDPA
-    (q, k, v) = long
-    B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
+    # time K6 beside SDPA (the library's call, never the port's) at the
+    # long shape in bf16 and fp32, and at layer 0's shape
     run = timer(device)
+
+    def sdpa(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        return run(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+
+    (q, k, v) = long0
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    q32, k32, v32 = cast(long0, f32)
     with torch.no_grad():
         ms = run(lambda: ops.flash_attention(q, k, v), reps)
         plain_ms = run(lambda: ref.flash_attention_ref(q, k, v), 3, 1)
         model_ms = run(lambda: L.attention(
             q, k, v, q_pos=torch.arange(T - S, T, device=device),
             kv_pos=torch.arange(T, device=device)), 3, 1)
-        library_ms = None
-        if device.type == "cuda":
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            library_ms = run(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    ops_n = 4.0 * B * H * hd * live_pairs(S, T, True, 0)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops_n / PEAK_BF16_TC_PER_S * 1e3
-    long_row = shapes[1]
-    kernel_row = {"name": "flash_attn", "route": "cuda",
-                  "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
-                  "replaces": "src/repro/kernels/flash_attn.py:37",
-                  "launches": launches,
-                  "max_abs_err": long_row["max_abs_err_plain"],
-                  "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": max(t_bytes, t_ops),
-                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                  "library_ms": library_ms, "model_attention_ms": model_ms,
-                  "tol": long_row["tol"], "shape": long_row["shape"],
-                  "bytes": nbytes, "ops": ops_n}
+        fp32_ms = run(lambda: ops.flash_attention(q32, k32, v32), reps)
+        fp32_plain_ms = run(lambda: ref.flash_attention_ref(q32, k32, v32),
+                            3, 1)
+        serve_ms = run(lambda: ops.flash_attention(*layer0), reps)
+        library_ms = fp32_library_ms = serve_library_ms = None
+        if cuda:
+            library_ms = sdpa(q, k, v)
+            fp32_library_ms = sdpa(q32, k32, v32)
+            serve_library_ms = sdpa(*layer0)
+    del q32, k32, v32
+    pairs = live_pairs(S, T, True, 0)
+    ops_n = 4.0 * B * H * hd * pairs
+    usage = ptxas_usage(_build.BUILD_INFO["log"])
+    long_row = next(r for r in shapes if r["name"] == "long")
+    long32_row = next(r for r in shapes if r["name"] == "long_fp32")
+    rows = []
+    for name, dtype_bytes, peak, row, t_ms, t_plain, t_lib in (
+            ("flash_attn", 2, PEAK_BF16_TC_PER_S, long_row, ms, plain_ms,
+             library_ms),
+            ("flash_attn_fp32", 4, PEAK_OPS_PER_S, long32_row, fp32_ms,
+             fp32_plain_ms, fp32_library_ms)):
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * dtype_bytes
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops_n / peak * 1e3
+        bms = max(t_bytes, t_ops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn.py:37",
+            "launches": launches[name], "max_abs_err": row[
+                "max_abs_err_plain"],
+            "ms": t_ms, "plain_ms": t_plain, "bound_ms": bms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": t_lib, "tflop_per_s": ops_n / t_ms / 1e9,
+            "share_of_bound": bms / t_ms,
+            "ptxas": usage.get("bf16" if name == "flash_attn" else "fp32"),
+            "shape": row["shape"], "bytes": nbytes, "ops": ops_n})
+    rows[0].update(
+        fp32_ms=fp32_ms, model_attention_ms=model_ms,
+        tol={"c": FLASH_BF16_C, "a": FLASH_BF16_A})
+    rows[1]["tol"] = FLASH_TOL["float32"]
     line = {"phase": "flash", "launches": launches, "shapes": shapes,
-            "long_ms": ms, "long_plain_ms": plain_ms,
-            "long_model_attention_ms": model_ms,
-            "long_library_ms": library_ms,
-            "long_tflop_per_s": ops_n / ms / 1e9}
-    return line, kernel_row
+            "bf16_gate": {"c": FLASH_BF16_C, "a": FLASH_BF16_A,
+                          "split": FLASH_GATE_SPLIT},
+            "bf16_readings": readings,
+            "long_ms": ms, "long_library_ms": library_ms,
+            "long_tflop_per_s": ops_n / ms / 1e9,
+            "long_fp32_ms": fp32_ms, "long_fp32_library_ms": fp32_library_ms,
+            "serve_layer0_ms": serve_ms,
+            "serve_layer0_library_ms": serve_library_ms,
+            "long_plain_ms": plain_ms, "long_model_attention_ms": model_ms,
+            "ptxas": usage}
+    return line, rows
 
 
 # ------------------------------------------------------------------ run --
@@ -1013,14 +1170,15 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     emit(serve_line)
     del params, model
     gc.collect()
-    flash_line, flash_row = flash_phase(sizes, device, layer0, sizes.reps)
+    flash_line, flash_rows = flash_phase(sizes, device, layer0, sizes.reps)
     emit(flash_line)
     if not serve_line["ok"]:
         raise AssertionError("serve: decode and the extended prefill "
                              "disagree (see the serve line)")
-    if device.type == "cuda" and flash_row["launches"] < 1:
-        raise AssertionError("the flash phase never launched K6")
-    return kern + [flash_row]
+    if device.type == "cuda" and min(r["launches"] for r in flash_rows) < 1:
+        raise AssertionError("the flash phase never launched K6's bf16 or "
+                             "fp32 kernel")
+    return kern + flash_rows
 
 
 def main(argv=None) -> int:
@@ -1047,6 +1205,7 @@ def main(argv=None) -> int:
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "staged_ms",
+        "tflop_per_s", "share_of_bound", "fp32_ms", "ptxas",
         "tol") if k in e} for e in kern]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

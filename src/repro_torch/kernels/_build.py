@@ -26,15 +26,18 @@ import time
 CSRC = pathlib.Path(__file__).with_name("csrc")
 SOURCES = ("gf_matmul.cu", "gear_cdc.cu", "sha1.cu", "fused_ingest.cu",
            "flash_attn.cu")
-HEADERS = ("sears_device.cuh",)  # included by the sources; hashed with them
+# included by the sources; hashed with them
+HEADERS = ("sears_device.cuh", "sm90.cuh")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libsears_kernels.so"
+LOG_NAME = "build.log"  # the compilers' output, beside the library
 
 # What the last build did: seconds and the compilers' output (ptxas -v
-# prints each kernel's registers and shared memory there).
+# prints each kernel's registers, spills and shared memory there).  A
+# library loaded from an earlier build reads that build's log.
 BUILD_INFO: dict = {"seconds": 0.0, "built": False, "log": ""}
 
 _P = ctypes.c_void_p
@@ -46,10 +49,12 @@ _SIGNATURES = {
     "sears_sha1": [_P, _P, _P, _I, _I, _P],
     "sears_fused_ingest": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P],
-    # (q, k, v, out, dtype, B, S, T, H, KV, hd, strides, scale, causal,
-    #  window, stream)
-    "sears_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                         ctypes.c_float, _I, _I, _P],
+    # (q, k, v, out, B, S, T, H, KV, hd, strides, scale, causal, window,
+    #  stream): fp32 on the CUDA cores, bf16 on the tensor cores
+    "sears_flash_attn_fp32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                              ctypes.c_float, _I, _I, _P],
+    "sears_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                              ctypes.c_float, _I, _I, _P],
 }
 
 
@@ -102,6 +107,7 @@ def build(out_dir: pathlib.Path) -> pathlib.Path:
                          for s, o in zip(SOURCES, objs)])
         lib_tmp = str(pathlib.Path(tmp) / LIB_NAME)
         logs += _run_all([[nvcc, *ARCH, "-shared", "-o", lib_tmp, *objs]])
+        (out_dir / LOG_NAME).write_text("\n".join(logs))
         os.replace(lib_tmp, out_dir / LIB_NAME)  # atomic: racing builds agree
     BUILD_INFO.update(seconds=time.perf_counter() - t0, built=True,
                       log="\n".join(logs))
@@ -114,6 +120,8 @@ def library() -> ctypes.CDLL:
     path = BUILD_ROOT / source_digest() / LIB_NAME
     if not path.exists():
         build(path.parent)
+    elif (path.parent / LOG_NAME).exists():
+        BUILD_INFO["log"] = (path.parent / LOG_NAME).read_text()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

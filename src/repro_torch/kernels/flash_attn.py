@@ -2,13 +2,19 @@
 
 Port of the JAX reference's Pallas kernel (``repro/kernels/flash_attn.py``)
 in its model layout: q (B, S, H, hd), k and v (B, T, KV, hd), the queries
-being the last S of the T positions.  ``csrc/flash_attn.cu`` gives one
-block to each (batch, query head, tile of 64 queries) and loops over the
-key tiles inside it, reading every tensor where it lies through its
-strides: the reference's transposes and pads are TPU layout work.
+being the last S of the T positions.  Two hand-written kernels in
+``csrc/flash_attn.cu``, chosen by dtype and nothing else:
+
+- bf16 -> ``sears_flash_attn_bf16``: wgmma on the tensor cores, K/V tiles
+  brought by TMA.  TMA reads each tensor where it lies through a tensor
+  map, which needs a 16-byte aligned base and (batch, sequence, head)
+  strides that are multiples of 16 bytes; ``launch`` checks both.
+  Counted in ``KERNELS["flash_attn"]``.
+- fp32 -> ``sears_flash_attn_fp32``: the CUDA cores (TF32 would not hold
+  the 2e-5 tolerance).  Counted in ``KERNELS["flash_attn_fp32"]``.
 
 A CPU tensor takes the plain version (``ref.flash_attention_ref``); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel of its dtype or raises.
 """
 
 from __future__ import annotations
@@ -22,19 +28,17 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launches import KERNELS
 
 HEAD_DIMS = (64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (C entry point, launch counter)
+ENTRY = {torch.bfloat16: ("sears_flash_attn_bf16", "flash_attn"),
+         torch.float32: ("sears_flash_attn_fp32", "flash_attn_fp32")}
+TMA_ALIGN = 16  # bytes: a tensor map's base and strides
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, *, scale: float, causal: bool,
-           window: int) -> None:
-    """Launch the CUDA kernel: out (B,S,H,hd) = attention(q, k, v)."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attn kernel needs CUDA tensors, got {dev}")
-    if q.dtype not in _DTYPES:
+def _check(q, k, v, out) -> None:
+    """Raise on what the kernels do not take."""
+    if q.dtype not in ENTRY:
         raise TypeError(f"flash_attn: dtype {q.dtype} is not one of "
-                        f"{list(_DTYPES)}")
+                        f"{list(ENTRY)}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attn: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
@@ -51,18 +55,49 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attn: out must be contiguous "
                          f"{tuple(q.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if x.device != dev or x.dtype != q.dtype or x.stride(-1) != 1:
-            raise ValueError(f"flash_attn: {name} must be {q.dtype} on {dev} "
-                             f"with unit stride in head_dim")
+        if x.device != q.device or x.dtype != q.dtype or x.stride(-1) != 1:
+            raise ValueError(f"flash_attn: {name} must be {q.dtype} on "
+                             f"{q.device} with unit stride in head_dim")
+    if q.dtype == torch.bfloat16:
+        size = q.element_size()
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"flash_attn: {name}'s base is not "
+                                 f"{TMA_ALIGN}-byte aligned (TMA)")
+            if any(s * size % TMA_ALIGN for s in x.stride()[:3]):
+                raise ValueError(f"flash_attn: {name}'s strides "
+                                 f"{x.stride()[:3]} are not multiples of "
+                                 f"{TMA_ALIGN} bytes (TMA)")
+
+
+def dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             out: torch.Tensor, *, scale: float, causal: bool, window: int,
+             stream: int) -> None:
+    """Check the tensors, then call the C entry point of q's dtype on
+    ``stream`` (a ``cudaStream_t`` as an int)."""
+    _check(q, k, v, out)
+    name, counter = ENTRY[q.dtype]
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    err = _build.library().sears_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, S, T, H, KV, hd, ctypes.addressof(strides),
-        float(scale), int(bool(causal)), int(window),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "flash_attn")
-    KERNELS["flash_attn"] += 1
+    err = getattr(_build.library(), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H,
+        KV, hd, ctypes.addressof(strides), float(scale), int(bool(causal)),
+        int(window), stream)
+    _build.check(err, name)
+    KERNELS[counter] += 1
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, *, scale: float, causal: bool,
+           window: int) -> None:
+    """Launch the CUDA kernel: out (B,S,H,hd) = attention(q, k, v)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attn kernel needs CUDA tensors, got {dev}")
+    dispatch(q, k, v, out, scale=scale, causal=causal, window=window,
+             stream=torch.cuda.current_stream(dev).cuda_stream)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -74,8 +74,11 @@ def delta_all(since: dict[str, LaunchCounter]) -> dict[str, LaunchCounter]:
 # adds one right where it launches its kernel and nowhere else -- never
 # on the plain (CPU) path -- so a run that reads these after zeroing
 # them proves which kernels its path really went through.
+# K6 has two: ``flash_attn`` (bf16, tensor cores) and ``flash_attn_fp32``
+# (fp32, CUDA cores).
 KERNELS: dict[str, int] = {"gf_matmul": 0, "gear_fire": 0, "gear_hash": 0,
-                           "sha1": 0, "fused_ingest": 0, "flash_attn": 0}
+                           "sha1": 0, "fused_ingest": 0, "flash_attn": 0,
+                           "flash_attn_fp32": 0}
 
 
 def reset_kernels() -> None:

@@ -81,3 +81,101 @@ def test_non_cpu_tensors_go_to_the_kernel_launch():
     kv = torch.empty((1, 64, 2, 64), **meta)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attn.flash_attention(q, kv, kv)
+
+
+# ---------------------------------------------------------------- dispatch --
+# The wrapper's routing and checks, with the CUDA library replaced by a
+# recorder: nothing here needs a card or nvcc.
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("sears_flash_attn"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def _qkvo(dtype, B=1, S=64, T=96, H=4, KV=2, hd=64):
+    q = torch.zeros((B, S, H, hd), dtype=dtype)
+    k = torch.zeros((B, T, KV, hd), dtype=dtype)
+    v = torch.zeros((B, T, KV, hd), dtype=dtype)
+    return q, k, v, torch.empty_like(q)
+
+
+@pytest.mark.parametrize("dtype,entry,counter", [
+    (torch.bfloat16, "sears_flash_attn_bf16", "flash_attn"),
+    (torch.float32, "sears_flash_attn_fp32", "flash_attn_fp32"),
+])
+def test_dtype_routes_to_its_own_kernel(monkeypatch, dtype, entry, counter):
+    """bf16 reaches the tensor-core entry point, fp32 the CUDA-core one,
+    each ticking its own counter; nothing else is called."""
+    rec = _Recorder()
+    monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
+    q, k, v, out = _qkvo(dtype)
+    before = dict(KERNELS)
+    flash_attn.dispatch(q, k, v, out, scale=0.125, causal=True, window=16,
+                        stream=7)
+    assert [name for name, _ in rec.calls] == [entry]
+    args = rec.calls[0][1]
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    assert args[4:10] == (1, 64, 96, 4, 2, 64)  # B, S, T, H, KV, hd
+    assert args[11:] == (0.125, 1, 16, 7)  # scale, causal, window, stream
+    ticked = {n: KERNELS[n] - before[n] for n in KERNELS}
+    assert ticked == {n: int(n == counter) for n in KERNELS}
+
+
+def _misaligned_base(x):
+    """x's values one element further into a buffer: base off by 2-4 B."""
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype)
+    return buf[1:].view(x.shape)
+
+
+def _padded_heads(x):
+    """x with each head row one element longer: head stride not a
+    multiple of 16 bytes, unit stride in head_dim kept."""
+    B, L, Hh, hd = x.shape
+    return torch.zeros((B, L, Hh, hd + 1), dtype=x.dtype)[..., :hd]
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("fault", ["base", "strides"])
+def test_bf16_rejects_what_tma_cannot_read(monkeypatch, which, fault):
+    rec = _Recorder()
+    monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
+    t = dict(zip("qkvo", _qkvo(torch.bfloat16)))
+    t[which] = (_misaligned_base if fault == "base" else _padded_heads)(
+        t[which])
+    match = "aligned" if fault == "base" else "multiples of 16 bytes"
+    before = dict(KERNELS)
+    with pytest.raises(ValueError, match=match):
+        flash_attn.dispatch(t["q"], t["k"], t["v"], t["o"], scale=0.125,
+                            causal=True, window=0, stream=0)
+    assert rec.calls == [] and KERNELS == before
+
+
+def test_fp32_takes_strides_tma_would_refuse(monkeypatch):
+    """The alignment rule is the TMA path's: the CUDA-core kernel reads
+    elements through any strides."""
+    rec = _Recorder()
+    monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
+    q, k, v, out = _qkvo(torch.float32)
+    flash_attn.dispatch(q, _padded_heads(k), v, out, scale=0.125,
+                        causal=True, window=0, stream=0)
+    assert [name for name, _ in rec.calls] == ["sears_flash_attn_fp32"]
+
+
+@pytest.mark.parametrize("hd", [32, 96, 512])
+def test_head_dims_outside_the_kernels_raise(monkeypatch, hd):
+    rec = _Recorder()
+    monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
+    q, k, v, out = _qkvo(torch.bfloat16, hd=hd)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attn.dispatch(q, k, v, out, scale=0.125, causal=True,
+                            window=0, stream=0)
+    assert rec.calls == []
