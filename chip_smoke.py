@@ -9,7 +9,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
 use compiles them with ``nvcc``), then drives the store's main path
 through the entry points a user calls, on the card:
 
-1. ``env``: the card (``nvidia-smi``), torch and CUDA versions, build time.
+1. ``env``: the card (``nvidia-smi``), torch and CUDA versions, build time,
+   the integer peak of the storage kernels' bounds (``int_peak``).
 2. ``put``: one put window of 16 users x 4 files x 3 MiB (192 MiB; a
    quarter of each file from a seeded shared pool) into
    ``SEARSStore(classes=[StorageClass.realtime()])`` -- 20 clusters, ULB
@@ -29,11 +30,18 @@ through the entry points a user calls, on the card:
    the ``kernel`` store's after phase 2; then every file back, a
    degraded get and a repair, as in phases 3-5.
 7. ``kernels``: each CUDA kernel against its plain torch version on the
-   card at main-path shapes (exact equality), timed with CUDA events
-   beside its bound; the fused ingest kernel also against the staged
-   SHA-1 + GF kernels on the same chunks (``staged_ms``).  Launch counts
-   in this line are those of the main paths (phases 2-5 for the staged
-   kernels, 6 for the fused one): every kernel must have launched there.
+   card at main-path shapes (exact equality), timed beside its bound in
+   two ways: ``ms``, one wrapper call in each CUDA-event pair (host work
+   included), and ``device_ms``, the device alone (``device_time``: 20
+   calls captured in one CUDA graph, replayed in one event pair, inputs
+   rotated over twice the L2).  The GF kernel runs every (r, k) it has
+   an instantiation for -- the (10,5) encode, (5,5) decodes -- and the
+   generic one at (14,10); SHA-1 also hashes 512 messages of 8 KB (the
+   longest chain) and one 8 KB message among empty ones against
+   hashlib.  The fused ingest kernel is also held to the staged SHA-1 +
+   GF kernels on the same chunks (``staged_ms``).  Launch counts in this
+   line are those of the main paths (phases 2-5 for the staged kernels,
+   6 for the fused one): every kernel must have launched there.
 8. ``differential``: a 32 MiB trace through the port's ``NumpyEngine``
    and through ``TorchEngine()`` on the card; node piece digests, index
    records and stats must be identical.
@@ -78,9 +86,11 @@ through the entry points a user calls, on the card:
    copies of every shape but hd 256 are held within 2e-5; both dtypes
    are held against ``layers.attention`` within 2e-2 (bf16) or 2e-5
    (fp32), the tolerances of ``tests/test_flash_attn.py``.  Then K6 is
-   timed at the long shape in bf16 and fp32 and at layer 0's shape,
-   each beside ``F.scaled_dot_product_attention`` (``library_ms``, never
-   called by the port), with its plain version and the model's
+   timed at the long shape in bf16 and fp32 and at layer 0's shape (per
+   call and on the device alone), each beside
+   ``F.scaled_dot_product_attention`` (``library_ms`` and
+   ``library_device_ms``, never called by the port), with its plain
+   version and the model's
    attention at the long shape; the rows give TFLOP/s, the share of the
    bound and ``ptxas -v``'s registers and spills for each head dim.
 
@@ -91,7 +101,8 @@ the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.  ``--log-dir`` writes the compilers' output and
-the profiler's table there.
+the profiler's table there.  ``time_kernels.py`` runs phase 7 alone
+on any checkout's kernels, to compare two commits in one call.
 """
 
 from __future__ import annotations
@@ -113,12 +124,24 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth,
-# the 32-bit rate outside the tensor cores (the integer and bitwise work
-# of the storage kernels has no faster path), and the dense bf16 tensor
-# core rate (attention's products could run there).
+# the fp32 rate outside the tensor cores (K6's fp32 kernel) and the dense
+# bf16 tensor core rate (K6's bf16 kernel).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_TC_PER_S = 989e12
+# The storage kernels (K1-K5) do 32-bit integer and logic work: an SM
+# executes 64 such operations a clock (4 x 16 INT32 lanes), so their peak
+# is 64 x SMs x the maximum SM clock that nvidia-smi reports
+# (``int_peak``).  Without a card: the data sheet's 132 SMs at 1980 MHz.
+INT_OPS_PER_SM_CLOCK = 64
+NOMINAL_SMS, NOMINAL_MAX_SM_MHZ = 132, 1980.0
+# Device-only timing (``device_time``): this many calls captured in one
+# CUDA graph, replayed inside one event pair; inputs rotate over copies
+# that span twice the 50 MB L2, so each call finds its inputs in HBM as
+# a main-path call finds freshly uploaded ones.
+DEVICE_LAUNCHES = 20
+DEVICE_REPLAYS = 5
+L2_SPAN_BYTES = 100 << 20
 # K6 against the model's attention (both dtypes) and the fp32 kernel
 # against its plain version: the tolerances of tests/test_flash_attn.py
 # (rtol = atol).
@@ -147,9 +170,17 @@ FLASH_BF16_A = 3e-3
 SERVE_SEEDS = (0, 1, 2)
 SERVE_CACHE_TOL = 5e-2
 SERVE_LOGIT_TOL = 5e-2
-# SHA-1 operations per 64-byte block: 64 schedule words x (3 xor + 1
-# rotate) + 80 rounds x (f: 2.75 on average + 4 adds + 2 rotates) + 5.
-SHA1_OPS_PER_BLOCK = 64 * 4 + 80 * 8.75 + 5
+# SHA-1 integer operations per 64-byte block, in the card's 3-input
+# forms: 64 schedule words x (two 3-input XORs (LOP3) + a rotate) + 80
+# rounds x (f as one LOP3, two adds for f + e + W + K, rotl(a, 5) + X as
+# one LEA.HI, rotl(b, 30)) + 5 adds into the state.
+SHA1_OPS_PER_BLOCK = 64 * 3 + 80 * 5 + 5
+# GF(2^8) product by bit planes (K1's form), per 32-bit word of data:
+# the eight byte masks of an input word (a shift and a PRMT each, one
+# shift fewer for bit 7), needed by inputs with an entry that is neither
+# 0 nor 1; eight AND-XORs (LOP3) for each such entry; one XOR for an
+# entry 1; nothing for an entry 0.
+GF_MASK_OPS, GF_ENTRY_OPS = 15, 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,7 +272,7 @@ def main_path(sizes: Sizes, engine, sync, prefix: str = ""
     lines (names prefixed by ``prefix``), the kernel launch counts of the
     whole path and the store's artifacts right after the put."""
     from repro_torch.core import SEARSStore, StorageClass
-    from repro_torch.kernels import gf_matmul
+    from repro_torch.kernels import gf_matmul, ops
     from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
 
     files = make_files(sizes, seed=11)
@@ -305,7 +336,11 @@ def main_path(sizes: Sizes, engine, sync, prefix: str = ""
     if not report.balanced or report.pieces_rebuilt < 1:
         raise AssertionError(f"repair did not balance: {report}")
     after_s = get_all(store, files)
+    # every (r, k) the GF kernel ran at so far in this process
+    gf_shapes = sorted({tuple(key[2]) for key in ops._SEEN_SHAPES
+                        if key[0] == "gf"})
     lines.append({"phase": prefix + "repair", "seconds": rep_s,
+                  "gf_shapes": gf_shapes,
                   "pieces_rebuilt": report.pieces_rebuilt,
                   "chunks_rebuilt": len(report.rebuilt),
                   "get_after_seconds": after_s,
@@ -452,7 +487,9 @@ def fused_paths(sizes: Sizes, engine) -> list[dict]:
 
 # -------------------------------------------------------------- kernels --
 def timer(device):
-    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up."""
+    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up: one
+    call of the Python wrapper in each CUDA-event pair, so the wrapper's
+    host work counts where the device waits for it."""
     import torch
 
     def run(fn, reps: int, warmup: int = 2) -> float:
@@ -479,32 +516,110 @@ def timer(device):
     return run
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def device_time(fns, device) -> float | None:
+    """Device milliseconds of one call: ``DEVICE_LAUNCHES`` calls, cycling
+    over ``fns``, captured in one CUDA graph and replayed inside one event
+    pair (median of ``DEVICE_REPLAYS`` replays, over the launch count).  A
+    replay runs only the captured kernels, never the wrappers' host work.
+    Each fn is called once before the capture (builds, uploads, memos).
+    None without a card."""
+    if device.type != "cuda":
+        return None
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(DEVICE_LAUNCHES):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(DEVICE_REPLAYS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e) / DEVICE_LAUNCHES)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(ts)
+
+
+def copies(tensors: tuple, nbytes: int) -> list[tuple]:
+    """``tensors`` and clones of them, enough that the calls of
+    ``device_time`` cycling over them move L2_SPAN_BYTES (``nbytes`` a
+    call): each call then reads its inputs from HBM."""
+    n = max(1, math.ceil(L2_SPAN_BYTES / nbytes)) \
+        if tensors[0].device.type == "cuda" else 1
+    return [tensors] + [tuple(x.clone() for x in tensors)
+                        for _ in range(n - 1)]
+
+
+def int_peak(device) -> dict:
+    """The 32-bit integer / logic peak of the card: INT_OPS_PER_SM_CLOCK x
+    SMs x the maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    if device.type != "cuda":
+        sms, mhz, source = NOMINAL_SMS, NOMINAL_MAX_SM_MHZ, "nominal"
+    else:
+        import torch
+        idx = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        out = subprocess.run(
+            ["nvidia-smi", "-i", str(idx), "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60)
+        mhz, source = float(out.stdout.split()[0]), "nvidia-smi"
+    return {"ops_per_s": INT_OPS_PER_SM_CLOCK * sms * mhz * 1e6, "sms": sms,
+            "max_sm_mhz": mhz, "source": source}
+
+
+def gf_ops(M, words: int) -> int:
+    """Integer operations that an (r, k) matrix ``M`` times (k, 4 x
+    ``words``) bytes of data needs (GF_MASK_OPS, GF_ENTRY_OPS)."""
+    import numpy as np
+    M = np.asarray(M)
+    general = (M != 0) & (M != 1)
+    return words * (GF_MASK_OPS * int(general.any(axis=0).sum())
+                    + GF_ENTRY_OPS * int(general.sum())
+                    + int((M == 1).sum()))
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
-          shape) -> dict:
-    bms, by = bound(nbytes, ops)
+def entry(name, source, replaces, launches, err, ms, device_ms, plain_ms,
+          nbytes, ops, shape, peak_ops) -> dict:
+    bms, by = bound(nbytes, ops, peak_ops)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "shape": shape, "bytes": nbytes, "ops": ops}
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": shape, "bytes": nbytes, "ops": ops}
 
 
 def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
-    """Each kernel against its plain version at main-path shapes."""
+    """Each kernel against its plain version at main-path shapes, timed
+    per wrapper call (``ms``) and on the device alone (``device_ms``).
+    ``counts`` gives each row's ``launches``."""
     import numpy as np
     import torch
     from repro_torch.core import chunking, hashing, rs_code
     from repro_torch.core.classes import StorageClass
-    from repro_torch.kernels import (fused_ingest, gear_cdc, gf_matmul, ref,
-                                     sha1, tables)
+    from repro_torch.kernels import (_build, fused_ingest, gear_cdc,
+                                     gf_matmul, ref, sha1, tables)
 
     run = timer(device)
+    peak = int_peak(device)["ops_per_s"]
+    usage = ptxas_by_entry(_build.BUILD_INFO["log"])
     t = tables.tables(device)
     rng = np.random.default_rng(5)
     reps = sizes.reps
@@ -513,30 +628,53 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
     def maxerr(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
-    # K1: GF(2^8) matmul -- (10,5) encode, and a degraded decode
+    def upload(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(x).to(device)
+
+    # K1: GF(2^8) matmul at every (r, k) of the main path -- the (10,5)
+    # encode and (5,5) decodes: the received set (1,3,5,7,9) of the
+    # degraded get and the repair (unit rows among them) and parity only
+    # (5..9) -- and at (14,10), the archival encode, which no main path
+    # runs (the kernel's generic instantiation)
     B, L = sizes.gf_batch, sizes.gf_len
-    data = torch.from_numpy(rng.integers(0, 256, (B, 5, L), dtype=np.uint8)
-                            ).to(device)
+    data = upload(rng.integers(0, 256, (B, 5, L), dtype=np.uint8))
+    data10 = upload(rng.integers(0, 256, (B, 10, L), dtype=np.uint8))
     G = rs_code.generator_matrix(10, 5)
-    Dm = rs_code.decode_matrix(10, 5, (1, 3, 5, 7, 9))
+    mats = {"encode_10_5": (G, data),
+            "decode_5_5": (rs_code.decode_matrix(10, 5, (1, 3, 5, 7, 9)),
+                           data),
+            "decode_parity_5_5": (rs_code.decode_matrix(10, 5, tuple(
+                range(5, 10))), data),
+            "generic_14_10": (rs_code.generator_matrix(14, 10), data10)}
+    err, errs, by_shape = 0, {}, {}
+    for name, (M, d) in mats.items():
+        got = gf_matmul.gf_matmul(M, d)
+        want = ref.gf_matmul_ref(torch.from_numpy(M.astype(np.uint8)).to(
+            device), d, t.gf_log, t.gf_exp)
+        errs[name] = maxerr(got, want)
+        err = max(err, errs[name])
+        r, k = M.shape
+        # gf_matmul at L % TILE_L == 0 launches the kernel and nothing else
+        sets = copies((d,), B * L * (k + r))
+        by_shape[name] = device_time(
+            [lambda M=M, x=x: gf_matmul.gf_matmul(M, x) for (x,) in sets],
+            device)
+        del got, want, sets
+    del data10
     Gt = torch.from_numpy(G.astype(np.uint8)).to(device)
-    Dt = torch.from_numpy(Dm.astype(np.uint8)).to(device)
-    err = 0
-    for M, Mt in ((G, Gt), (Dm, Dt)):
-        got = gf_matmul.gf_matmul(M, data)
-        want = ref.gf_matmul_ref(Mt, data, t.gf_log, t.gf_exp)
-        err = max(err, maxerr(got, want))
     ms = run(lambda: gf_matmul.gf_matmul(G, data), reps)
     plain = run(lambda: ref.gf_matmul_ref(Gt, data, t.gf_log, t.gf_exp), 3, 1)
-    out.append(entry("gf_matmul", "gf_matmul.cu",
-                     "src/repro/kernels/gf_matmul.py:34",
-                     counts["gf_matmul"], err, ms, plain,
-                     B * L * (5 + 10), 2.0 * B * L * 10 * 5, [B, 5, L]))
+    e = entry("gf_matmul", "gf_matmul.cu",
+              "src/repro/kernels/gf_matmul.py:34", counts["gf_matmul"], err,
+              ms, by_shape["encode_10_5"], plain, B * L * (5 + 10),
+              gf_ops(G, B * L // 4), [B, 5, L], peak)
+    e.update(max_abs_err_by_shape=errs, device_ms_by_shape=by_shape,
+             ptxas={f: u for f, u in usage.items() if "gf_matmul" in f})
+    out.append(e)
 
     # K2/K3: gear fire (realtime and archival masks) and gear hash
     n = sizes.gear_bytes
-    stream = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)
-                              ).to(device)
+    stream = upload(rng.integers(0, 256, n, dtype=np.uint8))
     masks = [StorageClass.realtime().chunker.mask,
              StorageClass.archival().chunker.mask]
     h_plain = ref.gear_hash_ref(stream, t.gear)
@@ -546,12 +684,15 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
         want = (h_plain & gear_cdc._mask_bits(mask)) == 0
         err = max(err, maxerr(got, want))
     ms = run(lambda: gear_cdc.gear_fire(stream, masks[0]), reps)
+    fire = torch.empty(n, dtype=torch.bool, device=device)
+    dms = device_time([lambda: gear_cdc.launch(stream, masks[0], fire)],
+                      device)
     plain = run(lambda: (ref.gear_hash_ref(stream, t.gear)
                          & gear_cdc._mask_bits(masks[0])) == 0, 3, 1)
     # cheapest form: per byte a lookup, shift, add, and, compare
     out.append(entry("gear_fire", "gear_cdc.cu",
                      "src/repro/kernels/gear_cdc.py:92", counts["gear_fire"],
-                     err, ms, plain, 2 * n + 1024, 5.0 * n, [n]))
+                     err, ms, dms, plain, 2 * n + 1024, 5.0 * n, [n], peak))
     got = gear_cdc.gear_hash(stream)
     err = maxerr(got, h_plain)
     head = min(n, 1 << 16)
@@ -559,33 +700,62 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
     if not np.array_equal(got[:head].cpu().numpy().view(np.uint32), seq):
         raise AssertionError("gear hash differs from the sequential oracle")
     ms = run(lambda: gear_cdc.gear_hash(stream), reps)
+    hashes = torch.empty(n, dtype=torch.int32, device=device)
+    dms = device_time([lambda: gear_cdc.launch(stream, 0, hashes)], device)
     plain = run(lambda: ref.gear_hash_ref(stream, t.gear), 3, 1)
     out.append(entry("gear_hash", "gear_cdc.cu",
                      "src/repro/kernels/gear_cdc.py:68", counts["gear_hash"],
-                     err, ms, plain, 5 * n + 1024, 3.0 * n, [n]))
-    del stream, h_plain, got
+                     err, ms, dms, plain, 5 * n + 1024, 3.0 * n, [n], peak))
+    del stream, h_plain, got, fire, hashes
 
-    # K4: SHA-1 over 512 messages of 0..8192 bytes, also against hashlib
-    lens = rng.integers(0, sizes.sha1_max + 1, sizes.sha1_msgs)
+    # K4: SHA-1 over 512 messages of 0..8192 bytes, also against hashlib;
+    # then two batches against hashlib alone: every message 8 KB (129
+    # blocks each, the chain's worst case) and one 8 KB message among
+    # empty ones (a single chain)
+    def sha1_batch(msgs):
+        blocks, cnt = hashing.sha1_pad_batch(msgs, max_len=sizes.sha1_max)
+        bt, ct = upload(blocks.view(np.int32)), upload(cnt)
+        got = sha1.sha1_digest_words(bt, ct)
+        digests = hashing.digest_words_to_bytes(
+            got.cpu().numpy().view(np.uint32))
+        if digests != [hashlib.sha1(m).digest() for m in msgs]:
+            raise AssertionError(f"SHA-1 kernel differs from hashlib on "
+                                 f"{len(msgs)} messages of up to "
+                                 f"{max(map(len, msgs))} bytes")
+        return bt, ct, got
+
+    def sha1_device_ms(bt, ct):
+        sets = copies((bt, ct), bt.numel() * 4)
+        outs = [torch.empty((bt.shape[0], 5), dtype=torch.int32,
+                            device=device) for _ in sets]
+        return device_time([lambda b=b, c=c, o=o: sha1.launch(b, c, o)
+                            for (b, c), o in zip(sets, outs)], device)
+
+    m = sizes.sha1_msgs
+    lens = rng.integers(0, sizes.sha1_max + 1, m)
     lens[:2] = (0, sizes.sha1_max)
     msgs = [rng.bytes(int(x)) for x in lens]
-    blocks, cnt = hashing.sha1_pad_batch(msgs, max_len=sizes.sha1_max)
-    bt = torch.from_numpy(blocks.view(np.int32)).to(device)
-    ct = torch.from_numpy(cnt).to(device)
-    got = sha1.sha1_digest_words(bt, ct)
+    bt, ct, got = sha1_batch(msgs)
     want = ref.sha1_ref(bt, ct)
     err = maxerr(got, want)
-    digests = hashing.digest_words_to_bytes(got.cpu().numpy().view(np.uint32))
-    if digests != [hashlib.sha1(m).digest() for m in msgs]:
-        raise AssertionError("SHA-1 kernel differs from hashlib")
     ms = run(lambda: sha1.sha1_digest_words(bt, ct), reps)
+    dms = sha1_device_ms(bt, ct)
     plain = run(lambda: ref.sha1_ref(bt, ct), 1, 1)
-    nblk = int(cnt.sum())
-    out.append(entry("sha1", "sha1.cu", "src/repro/kernels/sha1.py:56",
-                     counts["sha1"], err, ms, plain,
-                     nblk * 64 + len(msgs) * (4 + 20),
-                     nblk * SHA1_OPS_PER_BLOCK, list(blocks.shape)))
-    del bt, ct, got, want
+    nblk = int(ct.sum())
+    e = entry("sha1", "sha1.cu", "src/repro/kernels/sha1.py:56",
+              counts["sha1"], err, ms, dms, plain,
+              nblk * 64 + m * (4 + 20), nblk * SHA1_OPS_PER_BLOCK,
+              list(bt.shape), peak)
+    worst = [rng.bytes(sizes.sha1_max) for _ in range(m)]
+    wbt, wct, _ = sha1_batch(worst)
+    one = [rng.bytes(sizes.sha1_max)] + [b""] * (m - 1)
+    obt, oct_, _ = sha1_batch(one)
+    e["longest_chain_rounds"] = int(ct.max()) * 80
+    e["ptxas"] = {f: u for f, u in usage.items() if "sha1" in f}
+    e["device_ms_all_8k"] = sha1_device_ms(wbt, wct)
+    e["device_ms_one_8k"] = sha1_device_ms(obt, oct_)
+    out.append(e)
+    del bt, ct, got, want, wbt, wct, obt, oct_
 
     # K5: fused SHA-1 + (10,5) encode of one main-path bucket: Lp = 2048,
     # lengths in (k*(Lp-512), k*Lp] plus the padding edges; against its
@@ -599,15 +769,14 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
     plens = [code.piece_len(len(m)) for m in msgs]
     packed = np.stack([rs_code.pack_blob(m, k, L, Lp)
                        for m, L in zip(msgs, plens)])
-    data = torch.from_numpy(packed).to(device)
-    nb = torch.from_numpy(lens.astype(np.int32)).to(device)
-    pl = torch.from_numpy(np.asarray(plens, np.int32)).to(device)
+    data = upload(packed)
+    nb = upload(lens.astype(np.int32))
+    pl = upload(np.asarray(plens, np.int32))
     words, enc = fused_ingest.fused_ingest(G, data, nb, pl)
     pw, pe = ref.fused_ingest_ref(Gt, data, nb, pl, t.gf_log, t.gf_exp)
     err = max(maxerr(words, pw), maxerr(enc, pe))
     blocks, cnt = hashing.sha1_pad_batch(msgs, max_len=k * Lp)
-    bt = torch.from_numpy(blocks.view(np.int32)).to(device)
-    ct = torch.from_numpy(cnt).to(device)
+    bt, ct = upload(blocks.view(np.int32)), upload(cnt)
     if not (torch.equal(words, sha1.sha1_digest_words(bt, ct))
             and torch.equal(enc, gf_matmul.gf_matmul(G, data))):
         raise AssertionError("fused ingest differs from staged SHA-1 + GF")
@@ -618,14 +787,26 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
     ms = run(lambda: fused_ingest.fused_ingest(G, data, nb, pl), reps)
     staged = run(lambda: (sha1.sha1_digest_words(bt, ct),
                           gf_matmul.gf_matmul(G, data)), reps)
+    nbytes = B * Lp * (k + n) + B * (4 + 4 + 20)
+    sets = copies((data, nb, pl, bt, ct), nbytes + bt.numel() * 4)
+    outs = [(torch.empty_like(words), torch.empty_like(enc)) for _ in sets]
+    dms = device_time([lambda s=s, o=o: fused_ingest.launch(
+        Gt, s[0], s[1], s[2], o[0], o[1], t) for s, o in zip(sets, outs)],
+        device)
+    staged_dms = device_time([lambda s=s, o=o: (
+        sha1.launch(s[3], s[4], o[0]), gf_matmul.gf_matmul(G, s[0]))
+        for s, o in zip(sets, outs)], device)
+    del sets, outs
     plain = run(lambda: ref.fused_ingest_ref(Gt, data, nb, pl, t.gf_log,
                                              t.gf_exp), 3, 1)
     nblk = int(cnt.sum())
     e = entry("fused_ingest", "fused_ingest.cu",
               "src/repro/kernels/ops.py:320", counts["fused_ingest"], err,
-              ms, plain, B * Lp * (k + n) + B * (4 + 4 + 20),
-              nblk * SHA1_OPS_PER_BLOCK + 2.0 * B * Lp * n * k, [B, k, Lp])
-    e["staged_ms"] = staged
+              ms, dms, plain, nbytes,
+              nblk * SHA1_OPS_PER_BLOCK + gf_ops(G, B * Lp // 4),
+              [B, k, Lp], peak)
+    e.update(staged_ms=staged, staged_device_ms=staged_dms,
+             ptxas={f: u for f, u in usage.items() if "fused_ingest" in f})
     out.append(e)
     return out
 
@@ -865,18 +1046,16 @@ def round_up_1sd(x: float) -> float:
     return math.ceil(round(x / 10.0 ** e, 9)) * 10.0 ** e
 
 
-def ptxas_usage(log: str) -> dict:
-    """Registers and spill bytes of K6's kernels from the ``ptxas -v``
-    build log: {"bf16" | "fp32": {hd: {...}}}."""
-    kinds = {"flash_wgmma_kernel": "bf16", "flash_fp32_kernel": "fp32"}
+def ptxas_by_entry(log: str) -> dict:
+    """Registers and spill bytes of every kernel in the ``ptxas -v`` build
+    log: {mangled entry name: {"registers", "spill_stores",
+    "spill_loads"}}."""
     out: dict = {}
     cur = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_[a-z0-9]+_kernel)ILi(\d+)E", m.group(1))
-            cur = (out.setdefault(kinds[k.group(1)], {}).setdefault(
-                k.group(2), {}) if k and k.group(1) in kinds else None)
+            cur = out.setdefault(m.group(1), {})
             continue
         if cur is None:
             continue
@@ -888,6 +1067,17 @@ def ptxas_usage(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_usage(log: str) -> dict:
+    """K6's kernels from ``ptxas_by_entry``: {"bf16" | "fp32": {hd: {...}}}."""
+    kinds = {"flash_wgmma_kernel": "bf16", "flash_fp32_kernel": "fp32"}
+    out: dict = {}
+    for fn, use in ptxas_by_entry(log).items():
+        k = re.search(r"(flash_[a-z0-9]+_kernel)ILi(\d+)E", fn)
+        if k and k.group(1) in kinds:
+            out.setdefault(kinds[k.group(1)], {})[k.group(2)] = use
     return out
 
 
@@ -1026,10 +1216,14 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
     # long shape in bf16 and fp32, and at layer 0's shape
     run = timer(device)
 
-    def sdpa(q, k, v):
+    def sdpa(q, k, v) -> tuple[float, float | None]:
+        """SDPA's per-call and device-only milliseconds."""
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        return run(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+
+        def call():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        return run(call, reps), device_time([call], device)
 
     (q, k, v) = long0
     B, S, H, hd = q.shape
@@ -1045,11 +1239,16 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
         fp32_plain_ms = run(lambda: ref.flash_attention_ref(q32, k32, v32),
                             3, 1)
         serve_ms = run(lambda: ops.flash_attention(*layer0), reps)
-        library_ms = fp32_library_ms = serve_library_ms = None
+        dev_ms = device_time([lambda: ops.flash_attention(q, k, v)], device)
+        fp32_dev_ms = device_time([lambda: ops.flash_attention(q32, k32,
+                                                               v32)], device)
+        serve_dev_ms = device_time([lambda: ops.flash_attention(*layer0)],
+                                   device)
+        lib = fp32_lib = serve_lib = (None, None)
         if cuda:
-            library_ms = sdpa(q, k, v)
-            fp32_library_ms = sdpa(q32, k32, v32)
-            serve_library_ms = sdpa(*layer0)
+            lib = sdpa(q, k, v)
+            fp32_lib = sdpa(q32, k32, v32)
+            serve_lib = sdpa(*layer0)
     del q32, k32, v32
     pairs = live_pairs(S, T, True, 0)
     ops_n = 4.0 * B * H * hd * pairs
@@ -1057,11 +1256,11 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
     long_row = next(r for r in shapes if r["name"] == "long")
     long32_row = next(r for r in shapes if r["name"] == "long_fp32")
     rows = []
-    for name, dtype_bytes, peak, row, t_ms, t_plain, t_lib in (
-            ("flash_attn", 2, PEAK_BF16_TC_PER_S, long_row, ms, plain_ms,
-             library_ms),
+    for name, dtype_bytes, peak, row, t_ms, t_dev, t_plain, t_lib in (
+            ("flash_attn", 2, PEAK_BF16_TC_PER_S, long_row, ms, dev_ms,
+             plain_ms, lib),
             ("flash_attn_fp32", 4, PEAK_OPS_PER_S, long32_row, fp32_ms,
-             fp32_plain_ms, fp32_library_ms)):
+             fp32_dev_ms, fp32_plain_ms, fp32_lib)):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * dtype_bytes
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops_n / peak * 1e3
@@ -1072,9 +1271,11 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
             "replaces": "src/repro/kernels/flash_attn.py:37",
             "launches": launches[name], "max_abs_err": row[
                 "max_abs_err_plain"],
-            "ms": t_ms, "plain_ms": t_plain, "bound_ms": bms,
+            "ms": t_ms, "device_ms": t_dev, "plain_ms": t_plain,
+            "bound_ms": bms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": t_lib, "tflop_per_s": ops_n / t_ms / 1e9,
+            "library_ms": t_lib[0], "library_device_ms": t_lib[1],
+            "tflop_per_s": ops_n / t_ms / 1e9,
             "share_of_bound": bms / t_ms,
             "ptxas": usage.get("bf16" if name == "flash_attn" else "fp32"),
             "shape": row["shape"], "bytes": nbytes, "ops": ops_n})
@@ -1086,11 +1287,14 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
             "bf16_gate": {"c": FLASH_BF16_C, "a": FLASH_BF16_A,
                           "split": FLASH_GATE_SPLIT},
             "bf16_readings": readings,
-            "long_ms": ms, "long_library_ms": library_ms,
+            "long_ms": ms, "long_device_ms": dev_ms,
+            "long_library_ms": lib[0], "long_library_device_ms": lib[1],
             "long_tflop_per_s": ops_n / ms / 1e9,
-            "long_fp32_ms": fp32_ms, "long_fp32_library_ms": fp32_library_ms,
+            "long_fp32_ms": fp32_ms, "long_fp32_library_ms": fp32_lib[0],
             "serve_layer0_ms": serve_ms,
-            "serve_layer0_library_ms": serve_library_ms,
+            "serve_layer0_device_ms": serve_dev_ms,
+            "serve_layer0_library_ms": serve_lib[0],
+            "serve_layer0_library_device_ms": serve_lib[1],
             "long_plain_ms": plain_ms, "long_model_attention_ms": model_ms,
             "ptxas": usage}
     return line, rows
@@ -1121,7 +1325,8 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     lines.append({"phase": "env", "card": card, "torch": torch.__version__,
                   "cuda": torch.version.cuda, "device": str(device),
                   "build_seconds": build_s,
-                  "built_now": _build.BUILD_INFO["built"]})
+                  "built_now": _build.BUILD_INFO["built"],
+                  "int_peak": int_peak(device)})
     for line in lines:
         emit(line)
     path_lines, counts, put_art = main_path(sizes, engine, sync)
@@ -1150,7 +1355,8 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     kern = kernels(sizes, device, counts)
     emit({"phase": "kernels", "kernels": [
         {k: e[k] for k in ("name", "launches", "max_abs_err", "ms",
-                           "plain_ms", "staged_ms", "bytes", "bound_ms",
+                           "device_ms", "plain_ms", "staged_ms",
+                           "staged_device_ms", "bytes", "ops", "bound_ms",
                            "bound_by") if k in e}
         for e in kern]})
     bad = [e["name"] for e in kern if e["max_abs_err"] != 0]
@@ -1204,9 +1410,13 @@ def main(argv=None) -> int:
     # comparison launches above them do not (main_path read them first)
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "staged_ms",
-        "tflop_per_s", "share_of_bound", "fp32_ms", "ptxas",
-        "tol") if k in e} for e in kern]})
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_device_ms", "staged_ms", "staged_device_ms",
+        "max_abs_err_by_shape", "device_ms_by_shape",
+        "longest_chain_rounds", "device_ms_all_8k",
+        "device_ms_one_8k", "tflop_per_s",
+        "share_of_bound", "fp32_ms", "ptxas", "tol") if k in e}
+        for e in kern]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,8 @@ BUILD_INFO: dict = {"seconds": 0.0, "built": False, "log": ""}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (tables..., data, out, shape..., stream)
-    "sears_gf_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (host constants, device constants, data, out, B, r, k, L, stream)
+    "sears_gf_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sears_gear": [_P, _P, ctypes.c_uint32, _P, ctypes.c_longlong, _I, _P],
     "sears_sha1": [_P, _P, _P, _I, _I, _P],
     "sears_fused_ingest": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -15,22 +15,23 @@
 // own piece length, not Lp; columns past L_b are zero.
 //
 // What bounds it on an H100: the bytes are few (k*Lp in, n*Lp out per
-// chunk) and the GF half is the gf_matmul tile; the SHA-1 half is a
+// chunk) and the GF half is a log/exp table tile; the SHA-1 half is a
 // sequential chain of ~(nbytes / 64) compressions per chunk, one thread
 // each, so with B messages it is latency-bound and fills B / 128 SMs.
 //
 // Design: one grid, two roles chosen by blockIdx, 128 threads per block.
 // The lowest blocks are SHA-1 blocks, one thread per message, so the long
 // serial hashes start first; the rest are GF blocks, one per (row,
-// 512-byte tile), exactly as in gf_matmul.cu.  A SHA-1 thread assembles
-// each 64-byte block's 16 big-endian words on the fly: a block inside
-// the message and inside one row takes 17 aligned 32-bit loads and
-// funnels each word from two of them (`__byte_perm`, whatever the
-// row's alignment); the few blocks that cross a row end or the message
-// end go byte by byte: message bytes, 0x80, zeros.  The 64-bit bit
-// length fills words 14-15 of the last block.  It loops over the
-// message's (nbytes + 8) / 64 + 1 real blocks only.  The compression and
-// the GF tile are sears_device.cuh's.
+// 512-byte tile), with the log/exp tables of sears_device.cuh.  A SHA-1
+// thread assembles each 64-byte block's 16 big-endian words on the fly:
+// a block inside the message and inside one row takes 17 aligned 32-bit
+// loads and funnels each word from two of them (`__byte_perm`, whatever
+// the row's alignment); the few blocks that cross a row end or the
+// message end go byte by byte: message bytes, 0x80, zeros.  The 64-bit
+// bit length fills words 14-15 of the last block.  It loops over the
+// message's (nbytes + 8) / 64 + 1 real blocks only.  The serial
+// compression and the GF tile are sears_device.cuh's (K4 and K1 have
+// their own Hopper designs in sha1.cu and gf_matmul.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,7 +95,7 @@ static __device__ void sha1_packed(const uint8_t* __restrict__ base,
       w[14] = static_cast<uint32_t>(bits >> 32);
       w[15] = static_cast<uint32_t>(bits);
     }
-    sears::sha1_compress(h, w);
+    sears::sha1_compress_serial(h, w);
   }
 #pragma unroll
   for (int i = 0; i < 5; ++i) out[i] = h[i];

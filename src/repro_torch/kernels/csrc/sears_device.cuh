@@ -1,8 +1,10 @@
 // Device-side building blocks shared by the storage kernels.
 //
 // Each piece of arithmetic exists once and is used by every kernel that
-// needs it: the SHA-1 compression by sha1.cu and fused_ingest.cu, the
-// GF(2^8) table set-up and tile body by gf_matmul.cu and fused_ingest.cu.
+// needs it: the SHA-1 initial value and rotate by sha1.cu and
+// fused_ingest.cu; the serial SHA-1 compression and the GF(2^8) log/exp
+// table set-up and tile body by fused_ingest.cu (sha1.cu and gf_matmul.cu
+// have their own warp-specialised rounds and bit-plane product).
 // Everything here is `static` and inlined, so each source that includes
 // this header compiles its own copy and nothing needs device linking.
 
@@ -19,11 +21,12 @@ static __device__ __forceinline__ uint32_t rotl(uint32_t x, int c) {
   return __funnelshift_l(x, x, c);
 }
 
-// One SHA-1 compression: folds the 16 big-endian message words `w` (used
-// as the rolling schedule, so overwritten) into the chaining value `h`.
-// The schedule is a 16-word window in registers; the 80 rounds unroll.
-static __device__ __forceinline__ void sha1_compress(uint32_t (&h)[5],
-                                                     uint32_t (&w)[16]) {
+// One SHA-1 compression in one thread: folds the 16 big-endian message
+// words `w` (used as the rolling schedule, so overwritten) into the
+// chaining value `h`.  The schedule is a 16-word window in registers; the
+// 80 rounds unroll.
+static __device__ __forceinline__ void sha1_compress_serial(
+    uint32_t (&h)[5], uint32_t (&w)[16]) {
   uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4];
 #pragma unroll
   for (int t = 0; t < 80; ++t) {

@@ -2,8 +2,9 @@
 
 Port of the JAX reference's Pallas kernel (``repro/kernels/sha1.py``):
 SHA-1 is sequential over the 64-byte blocks of one message but parallel
-across messages, so ``csrc/sha1.cu`` runs one thread per message over
-that message's real blocks.  Input comes from
+across messages, so ``csrc/sha1.cu`` hashes each message in one consumer
+lane over that message's real blocks, while a producer warp stages the
+blocks and expands their schedules ahead of it.  Input comes from
 ``core.hashing.sha1_pad_batch`` (padding done on the host, words held as
 big-endian values); output digests match ``hashlib.sha1`` bit for bit.
 

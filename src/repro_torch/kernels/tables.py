@@ -4,7 +4,7 @@ SEARS has no learned weights; its parameters are fixed tables: the gear
 table of the CDC rolling hash (``core.chunking.GEAR_TABLE``) and the
 GF(2^8) log/exp tables (``core.gf256``).  ``load_tables`` takes them as
 numpy arrays, uploads them to a device once, and derives the forms the
-CUDA GF kernel reads.  Every kernel wrapper and every plain version reads
+CUDA kernels read.  Every kernel wrapper and every plain version reads
 its tables from here, so a caller that loads other arrays (for example
 the JAX reference's, in the tests) changes what both compute.
 """
@@ -26,15 +26,19 @@ ZERO_LOG = 512
 KEXP_LEN = 1040  # >= 2 * ZERO_LOG + 1, rounded up to 16 bytes
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class Tables:
-    """One device's copy of the fixed tables."""
+    """One device's copy of the fixed tables (hashed by identity: memos
+    key on the load)."""
 
     gear: torch.Tensor     # (256,) int32: the uint32 gear values' bits
     gf_log: torch.Tensor   # (256,) int64: GF log (plain version)
     gf_exp: torch.Tensor   # (510,) int64: doubled GF exp (plain version)
-    gf_klog: torch.Tensor  # (256,) int16: log with 0 -> ZERO_LOG (kernel)
-    gf_kexp: torch.Tensor  # (KEXP_LEN,) uint8: exp, 0 past the logs (kernel)
+    gf_klog: torch.Tensor  # (256,) int16: log with 0 -> ZERO_LOG (K5)
+    gf_kexp: torch.Tensor  # (KEXP_LEN,) uint8: exp, 0 past the logs (K5)
+    # (256, 8) uint32, on the host: c * 2^b in GF(2^8) in all four bytes
+    # of word [c, b]; K1's bit-plane constants are rows of it
+    gf_bitplane: np.ndarray
 
 
 _TABLES: dict[tuple[str, int | None], Tables] = {}
@@ -72,13 +76,18 @@ def load_tables(gear_table: np.ndarray = GEAR_TABLE,
     klog[0] = ZERO_LOG
     kexp = np.zeros(KEXP_LEN, dtype=np.uint8)
     kexp[:exp.shape[0]] = exp
+    c = np.arange(256)[:, None]
+    prod = np.where(c == 0, 0,
+                    exp[log[np.maximum(c, 1)] + log[1 << np.arange(8)]])
+    bitplane = prod.astype(np.uint32) * np.uint32(0x01010101)
     gear_bits = np.ascontiguousarray(gear.astype(np.uint32)).view(np.int32)
     device = torch.device(device)
     t = Tables(gear=torch.from_numpy(gear_bits.copy()).to(device),
                gf_log=torch.from_numpy(log).to(device),
                gf_exp=torch.from_numpy(exp).to(device),
                gf_klog=torch.from_numpy(klog.astype(np.int16)).to(device),
-               gf_kexp=torch.from_numpy(kexp).to(device))
+               gf_kexp=torch.from_numpy(kexp).to(device),
+               gf_bitplane=bitplane)
     _TABLES[_key(device)] = t
     return t
 
