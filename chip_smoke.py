@@ -38,8 +38,11 @@ through the entry points a user calls, on the card:
    an instantiation for -- the (10,5) encode, (5,5) decodes -- and the
    generic one at (14,10); SHA-1 also hashes 512 messages of 8 KB (the
    longest chain) and one 8 KB message among empty ones against
-   hashlib.  The fused ingest kernel is also held to the staged SHA-1 +
-   GF kernels on the same chunks (``staged_ms``).  Launch counts in this
+   hashlib.  The fused ingest kernel runs one bucket of the main path's
+   (10,5) encode and one of the archival (14,10), each batch with the
+   SHA-1 padding edges and chunks that end on a row end, and is also held
+   to the staged SHA-1 + GF kernels on the same chunks (``staged_ms``,
+   ``staged_device_ms_by_shape``) and to hashlib.  Launch counts in this
    line are those of the main paths (phases 2-5 for the staged kernels,
    6 for the fused one): every kernel must have launched there.
 8. ``differential``: a 32 MiB trace through the port's ``NumpyEngine``
@@ -181,6 +184,10 @@ SHA1_OPS_PER_BLOCK = 64 * 3 + 80 * 5 + 5
 # 0 nor 1; eight AND-XORs (LOP3) for each such entry; one XOR for an
 # entry 1; nothing for an entry 0.
 GF_MASK_OPS, GF_ENTRY_OPS = 15, 8
+# Chunk lengths every K5 batch holds besides its bucket's: SHA-1's padding
+# edges (the 0x80 byte and the bit length in one block or two) on rows
+# shorter than 64 bytes, and a pad row (length 0).
+FUSED_EDGES = (0, 1, 55, 56, 63, 64, 119, 120)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +202,8 @@ class Sizes:
     gear_bytes: int = 64 << 20
     sha1_msgs: int = 512
     sha1_max: int = 8192
+    fused_batch: int = 16384    # a put window's bucket (K5 timing)
+    fused_len: int = 1024
     reps: int = 20
     reduced: bool = False       # llama32_1b.reduced() (CPU rehearsal)
     serve_batch: int = 4
@@ -757,56 +766,91 @@ def kernels(sizes: Sizes, device, counts: dict) -> list[dict]:
     out.append(e)
     del bt, ct, got, want, wbt, wct, obt, oct_
 
-    # K5: fused SHA-1 + (10,5) encode of one main-path bucket: Lp = 2048,
-    # lengths in (k*(Lp-512), k*Lp] plus the padding edges; against its
-    # plain version and against the staged K4 + K1 kernels
-    n, k = 10, 5
+    # K5: fused SHA-1 + encode of one bucket of chunks in (k*(Lp-512),
+    # top] bytes: at B x Lp = gf_batch x gf_len, the main path's (10,5)
+    # and the archival (14,10) of the mixed-class path, up to its 16 KB
+    # chunks; and at fused_batch x fused_len, a (10,5) bucket the size of
+    # a put window's (its launch takes the small-block form).  Each batch
+    # also holds the padding edges and chunks that end on a row end; each
+    # against its plain version, the staged K4 + K1 kernels and hashlib.
+    def fused_case(n, k, top, B, Lp):
+        code = rs_code.RSCode(n, k)
+        Gc = np.ascontiguousarray(rs_code.generator_matrix(n, k),
+                                  dtype=np.uint8)
+        Gd = gf_matmul._device_matrix(Gc.tobytes(), n, k, device)
+        lens = rng.integers(k * (Lp - 512) + 1, top + 1, B)
+        full = top // k * k  # ends on the end of its last row
+        fixed = (FUSED_EDGES + (full, full - 1, full - 9))[:B]
+        lens[:len(fixed)] = fixed
+        msgs = [rng.bytes(int(x)) for x in lens]
+        plens = [code.piece_len(len(m)) for m in msgs]
+        packed = np.stack([rs_code.pack_blob(m, k, L, Lp)
+                           for m, L in zip(msgs, plens)])
+        data = upload(packed)
+        nb = upload(lens.astype(np.int32))
+        pl = upload(np.asarray(plens, np.int32))
+        words, enc = fused_ingest.fused_ingest(Gc, data, nb, pl)
+        pw, pe = ref.fused_ingest_ref(Gd, data, nb, pl, t.gf_log, t.gf_exp)
+        err = max(maxerr(words, pw), maxerr(enc, pe))
+        blocks, cnt = hashing.sha1_pad_batch(msgs, max_len=k * Lp)
+        bt, ct = upload(blocks.view(np.int32)), upload(cnt)
+        if not (torch.equal(words, sha1.sha1_digest_words(bt, ct))
+                and torch.equal(enc, gf_matmul.gf_matmul(Gc, data))):
+            raise AssertionError(f"fused ingest ({n},{k}) differs from "
+                                 f"staged SHA-1 + GF")
+        digests = hashing.digest_words_to_bytes(
+            words.cpu().numpy().view(np.uint32))
+        if digests != [hashlib.sha1(m).digest() for m in msgs]:
+            raise AssertionError(f"fused ingest ({n},{k}) SHA-1 differs "
+                                 f"from hashlib")
+        nbytes = B * Lp * (k + n) + B * (4 + 4 + 20)
+        sets = copies((data, nb, pl, bt, ct), nbytes + bt.numel() * 4)
+        outs = [(torch.empty_like(words), torch.empty_like(enc))
+                for _ in sets]
+        dms = device_time([lambda s=s, o=o: fused_ingest.launch(
+            Gd, s[0], s[1], s[2], o[0], o[1], t)
+            for s, o in zip(sets, outs)], device)
+        staged_dms = device_time([lambda s=s, o=o: (
+            sha1.launch(s[3], s[4], o[0]), gf_matmul.gf_matmul(Gc, s[0]))
+            for s, o in zip(sets, outs)], device)
+        return dict(G=Gc, Gd=Gd, data=data, nb=nb, pl=pl, bt=bt, ct=ct,
+                    cnt=cnt, err=err, dms=dms, staged_dms=staged_dms,
+                    nbytes=nbytes, rounds=int(cnt.max()) * 80)
+
     B, Lp = sizes.gf_batch, sizes.gf_len
-    code = rs_code.RSCode(n, k)
-    lens = rng.integers(k * (Lp - 512) + 1, k * Lp + 1, B)
-    lens[:5] = (0, 55, 56, 63, 64)
-    msgs = [rng.bytes(int(x)) for x in lens]
-    plens = [code.piece_len(len(m)) for m in msgs]
-    packed = np.stack([rs_code.pack_blob(m, k, L, Lp)
-                       for m, L in zip(msgs, plens)])
-    data = upload(packed)
-    nb = upload(lens.astype(np.int32))
-    pl = upload(np.asarray(plens, np.int32))
-    words, enc = fused_ingest.fused_ingest(G, data, nb, pl)
-    pw, pe = ref.fused_ingest_ref(Gt, data, nb, pl, t.gf_log, t.gf_exp)
-    err = max(maxerr(words, pw), maxerr(enc, pe))
-    blocks, cnt = hashing.sha1_pad_batch(msgs, max_len=k * Lp)
-    bt, ct = upload(blocks.view(np.int32)), upload(cnt)
-    if not (torch.equal(words, sha1.sha1_digest_words(bt, ct))
-            and torch.equal(enc, gf_matmul.gf_matmul(G, data))):
-        raise AssertionError("fused ingest differs from staged SHA-1 + GF")
-    digests = hashing.digest_words_to_bytes(
-        words.cpu().numpy().view(np.uint32))
-    if digests != [hashlib.sha1(m).digest() for m in msgs]:
-        raise AssertionError("fused ingest SHA-1 differs from hashlib")
+    arch = StorageClass.archival()
+    main = fused_case(10, 5, 5 * Lp, B, Lp)
+    archival = fused_case(arch.n, arch.k, min(arch.k * Lp, arch.chunk_max),
+                          B, Lp)
+    big = fused_case(10, 5, 5 * sizes.fused_len, sizes.fused_batch,
+                     sizes.fused_len)
+    del big["data"], big["bt"]
+    G, data, nb, pl = main["G"], main["data"], main["nb"], main["pl"]
+    bt, ct, Gt = main["bt"], main["ct"], main["Gd"]
     ms = run(lambda: fused_ingest.fused_ingest(G, data, nb, pl), reps)
     staged = run(lambda: (sha1.sha1_digest_words(bt, ct),
                           gf_matmul.gf_matmul(G, data)), reps)
-    nbytes = B * Lp * (k + n) + B * (4 + 4 + 20)
-    sets = copies((data, nb, pl, bt, ct), nbytes + bt.numel() * 4)
-    outs = [(torch.empty_like(words), torch.empty_like(enc)) for _ in sets]
-    dms = device_time([lambda s=s, o=o: fused_ingest.launch(
-        Gt, s[0], s[1], s[2], o[0], o[1], t) for s, o in zip(sets, outs)],
-        device)
-    staged_dms = device_time([lambda s=s, o=o: (
-        sha1.launch(s[3], s[4], o[0]), gf_matmul.gf_matmul(G, s[0]))
-        for s, o in zip(sets, outs)], device)
-    del sets, outs
     plain = run(lambda: ref.fused_ingest_ref(Gt, data, nb, pl, t.gf_log,
                                              t.gf_exp), 3, 1)
-    nblk = int(cnt.sum())
+    nblk = int(main["cnt"].sum())
     e = entry("fused_ingest", "fused_ingest.cu",
-              "src/repro/kernels/ops.py:320", counts["fused_ingest"], err,
-              ms, dms, plain, nbytes,
+              "src/repro/kernels/ops.py:320", counts["fused_ingest"],
+              main["err"], ms, main["dms"], plain,
+              main["nbytes"],
               nblk * SHA1_OPS_PER_BLOCK + gf_ops(G, B * Lp // 4),
-              [B, k, Lp], peak)
-    e.update(staged_ms=staged, staged_device_ms=staged_dms,
-             ptxas={f: u for f, u in usage.items() if "fused_ingest" in f})
+              [B, 5, Lp], peak)
+    cases = {f"encode_10_5_{B}x{Lp}": main,
+             f"encode_{arch.n}_{arch.k}_{B}x{Lp}": archival,
+             f"encode_10_5_{sizes.fused_batch}x{sizes.fused_len}": big}
+    e.update(staged_ms=staged, staged_device_ms=main["staged_dms"],
+             ptxas={f: u for f, u in usage.items() if "fused_ingest" in f},
+             **{f"{field}_by_shape": {name: c[key]
+                                      for name, c in cases.items()}
+                for field, key in (("max_abs_err", "err"),
+                                   ("device_ms", "dms"),
+                                   ("staged_device_ms", "staged_dms"),
+                                   ("longest_chain_rounds", "rounds"))})
+    e["max_abs_err"] = max(c["err"] for c in cases.values())
     out.append(e)
     return out
 
@@ -1413,6 +1457,7 @@ def main(argv=None) -> int:
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "library_device_ms", "staged_ms", "staged_device_ms",
         "max_abs_err_by_shape", "device_ms_by_shape",
+        "staged_device_ms_by_shape", "longest_chain_rounds_by_shape",
         "longest_chain_rounds", "device_ms_all_8k",
         "device_ms_one_8k", "tflop_per_s",
         "share_of_bound", "fp32_ms", "ptxas", "tol") if k in e}

@@ -3,15 +3,19 @@
 Two representations are maintained:
 
 1. **log/exp tables** (classic software RS): ``mul(a,b) = EXP[LOG[a]+LOG[b]]``.
-   Used by the plain torch version (``kernels/ref.py``), by the CUDA GF
-   kernel (tables staged in shared memory) and by host-side numpy
-   helpers (matrix inversion for decode).
+   Used by the plain torch version (``kernels/ref.py``), by host-side
+   numpy helpers (matrix inversion for decode) and, through
+   ``kernels/tables.py``, to build the CUDA kernels' constants.
 
 2. **bit-matrix (bit-sliced) form**: multiplication by a fixed constant
    ``c`` in GF(2^8) is linear over GF(2), i.e. an 8x8 0/1 matrix ``M_c``
    acting on the bit vector of the operand.  An (n,k) GF(256) matmul
    therefore lifts to an (8n, 8k) GF(2) matmul followed by ``mod 2``.
-   Kept as host helpers; the port's GF kernel uses the tables instead.
+   The port's CUDA GF products (``csrc/gf_bitplane.cuh``, run by the GF
+   kernel and the fused ingest kernel) use this form one bit plane at a
+   time: ``c * x = XOR_b x_b * (c * 2^b)``, with the constants
+   ``c * 2^b`` built from the tables (``Tables.gf_bitplane``).  The
+   bit matrices are kept as host helpers.
 
 The field is GF(2^8) with the standard primitive polynomial
 x^8 + x^4 + x^3 + x^2 + 1 (0x11D), generator alpha = 2.

@@ -27,7 +27,7 @@ CSRC = pathlib.Path(__file__).with_name("csrc")
 SOURCES = ("gf_matmul.cu", "gear_cdc.cu", "sha1.cu", "fused_ingest.cu",
            "flash_attn.cu")
 # included by the sources; hashed with them
-HEADERS = ("sears_device.cuh", "sm90.cuh")
+HEADERS = ("sha1_ring.cuh", "gf_bitplane.cuh", "sm90.cuh")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -47,8 +47,9 @@ _SIGNATURES = {
     "sears_gf_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sears_gear": [_P, _P, ctypes.c_uint32, _P, ctypes.c_longlong, _I, _P],
     "sears_sha1": [_P, _P, _P, _I, _I, _P],
-    "sears_fused_ingest": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P],
+    # (host constants, device constants, data, nbytes, piece_lens, words,
+    #  enc, B, r, k, Lp, stream)
+    "sears_fused_ingest": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (q, k, v, out, B, S, T, H, KV, hd, strides, scale, causal, window,
     #  stream): fp32 on the CUDA cores, bf16 on the tensor cores
     "sears_flash_attn_fp32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,

@@ -22,9 +22,16 @@
 // after 32 steps.  So each thread takes 32 consecutive positions, warms h
 // up over the 32 bytes before them (h = 0 and no warm-up for the thread
 // at position 0: zero history), and then emits one output per byte.
-// Loads and stores are 16-byte vectors; the 256-entry gear table sits in
-// shared memory.  256 threads cover one 8192-byte tile (the reference's
-// TILE); the wrapper pads the stream to bucket_len, a multiple of it.
+// Loads are 16-byte vectors; the 256-entry gear table sits in shared
+// memory.  256 threads cover one 8192-byte tile (the reference's TILE);
+// the wrapper pads the stream to bucket_len, a multiple of it.  The fire
+// form stores each thread's 32 bitmap bytes as two 16-byte vectors.  The
+// hash form writes four bytes a position: stored straight from each
+// thread, one warp store would scatter 16-byte pieces 128 bytes apart
+// over 32 lines, so each warp first passes its 32 x 32 hashes through
+// 4 KB of shared memory (16-byte chunks, XOR-swizzled so neither side
+// conflicts on banks) and then stores its 4 KB of output as 8 warp
+// stores of 512 contiguous bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +66,7 @@ __global__ void gear_kernel(const uint8_t* __restrict__ data,
       h = (h << 1) + sg[(w[m >> 2] >> ((m & 3) * 8)) & 255u];
   }
   load32(data + t0, w);
-  if (FIRE) {
+  if constexpr (FIRE) {
     uint32_t bits[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q) bits[q] = 0;
@@ -72,16 +79,29 @@ __global__ void gear_kernel(const uint8_t* __restrict__ data,
     o[0] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
     o[1] = make_uint4(bits[4], bits[5], bits[6], bits[7]);
   } else {
+    // each warp's 1024 positions are 4 KB of contiguous output
+    __shared__ uint4 stage[THREADS / 32][32 * 8];
+    const int lane = threadIdx.x & 31;
+    uint4* st = stage[threadIdx.x >> 5];
     uint32_t hs[SEG];
 #pragma unroll
     for (int m = 0; m < SEG; ++m) {
       h = (h << 1) + sg[(w[m >> 2] >> ((m & 3) * 8)) & 255u];
       hs[m] = h;
     }
-    uint4* o = reinterpret_cast<uint4*>(static_cast<uint32_t*>(out) + t0);
+    // 16-byte chunk q of lane l at row l, column q ^ (l & 7)
 #pragma unroll
     for (int q = 0; q < SEG / 4; ++q)
-      o[q] = make_uint4(hs[4 * q], hs[4 * q + 1], hs[4 * q + 2], hs[4 * q + 3]);
+      st[lane * 8 + (q ^ (lane & 7))] =
+          make_uint4(hs[4 * q], hs[4 * q + 1], hs[4 * q + 2], hs[4 * q + 3]);
+    __syncwarp();
+    uint4* o = reinterpret_cast<uint4*>(static_cast<uint32_t*>(out) + t0 -
+                                        lane * SEG);
+#pragma unroll
+    for (int i = 0; i < SEG / 4; ++i) {
+      const int c = i * 32 + lane, row = c >> 3;
+      o[c] = st[row * 8 + ((c & 7) ^ (row & 7))];
+    }
   }
 }
 

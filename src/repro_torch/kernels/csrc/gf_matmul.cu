@@ -24,6 +24,9 @@
 // sign-replicate mode a mask) and 8 LOP3s per word for each entry that
 // is neither 0 nor 1, against 15 bytes moved per column.
 //
+// The masks, the products and the per-unit bodies are gf_bitplane.cuh's,
+// which fused_ingest.cu (K5) runs too.
+//
 // Design: each thread takes one 16-byte column group of one batch row at
 // a time (uint4 loads and stores: 32 lanes cover 512 contiguous bytes of
 // a row), a grid-stride loop over the (row, group) units with at most
@@ -33,78 +36,16 @@
 // every C_b is a constant-bank operand of its LOP3 and every loop
 // unrolls.  Every other shape (r, k <= 128) runs the generic
 // instantiation, which reads the constants from device memory (uniform
-// loads) and keeps GROUP output rows in registers at a time.
+// loads) and keeps GF_GROUP output rows in registers at a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "gf_bitplane.cuh"
+
 #define THREADS 256
 #define BLOCKS_PER_SM 4
-#define GROUP 8      // output rows a pass of the generic instantiation
-#define ONE 0x01010101u
-
-namespace {
-
-// The eight byte masks of each of the four words of a 16-byte group.
-__device__ __forceinline__ void bit_masks(const uint32_t (&x)[4],
-                                          uint32_t (&m)[4][8]) {
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      // bit b of each byte to its bit 7, then that sign into the byte
-      asm("prmt.b32 %0, %1, %2, %3;\n"
-          : "=r"(m[w][b])
-          : "r"(x[w] << (7 - b)), "r"(0u), "r"(0xBA98u));
-    }
-  }
-}
-
-// acc ^= c * x over four words, c = M[i][j] given by its constants.
-template <class Consts>
-__device__ __forceinline__ void mul_acc(uint32_t (&acc)[4],
-                                        const uint32_t (&x)[4],
-                                        const uint32_t (&m)[4][8],
-                                        const Consts& cst, int i, int j) {
-  const uint32_t c0 = cst(i, j, 0);
-  if (c0 == 0u) return;
-  if (c0 == ONE) {
-#pragma unroll
-    for (int w = 0; w < 4; ++w) acc[w] ^= x[w];
-    return;
-  }
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const uint32_t cb = cst(i, j, b);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) acc[w] ^= m[w][b] & cb;
-  }
-}
-
-// Constants in the kernel's parameters (the constant bank).
-template <int R, int K>
-struct ParamConsts {
-  uint32_t c[R * K * 8];
-  __device__ __forceinline__ uint32_t operator()(int i, int j, int b) const {
-    return c[(i * K + j) * 8 + b];
-  }
-};
-
-// Constants in device memory, every thread reading the same word.
-struct GlobalConsts {
-  const uint32_t* __restrict__ c;
-  int k;
-  __device__ __forceinline__ uint32_t operator()(int i, int j, int b) const {
-    return __ldg(c + (i * k + j) * 8 + b);
-  }
-};
-
-__device__ __forceinline__ void unpack(const uint4& v, uint32_t (&x)[4]) {
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-
-}  // namespace
 
 // data: (B, K, 16 * L16) as uint4, out: (B, R, 16 * L16) as uint4.
 template <int R, int K>
@@ -117,31 +58,11 @@ __global__ void __launch_bounds__(THREADS, 2)
        u < units; u += static_cast<long long>(gridDim.x) * THREADS) {
     const long long b = u / L16;
     const long long col = u - b * L16;
-    const uint4* d = data + b * K * L16 + col;
-    uint32_t x[K][4];
-#pragma unroll
-    for (int j = 0; j < K; ++j) unpack(__ldg(d + j * L16), x[j]);
-    uint32_t acc[R][4];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) acc[i][w] = 0u;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      uint32_t m[4][8];
-      bit_masks(x[j], m);
-#pragma unroll
-      for (int i = 0; i < R; ++i) mul_acc(acc[i], x[j], m, cst, i, j);
-    }
-    uint4* o = out + b * R * L16 + col;
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      o[i * L16] = make_uint4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    gf_unit(cst, data + b * K * L16 + col, out + b * R * L16 + col, L16);
   }
 }
 
-// Any (r, k): constants from device memory, GROUP output rows a pass
-// (the input rows are read once a pass).
+// Any (r, k): constants from device memory.
 __global__ void __launch_bounds__(THREADS, 2)
     gf_matmul_generic_kernel(const uint32_t* __restrict__ consts,
                              const uint4* __restrict__ data,
@@ -153,28 +74,8 @@ __global__ void __launch_bounds__(THREADS, 2)
        u < units; u += static_cast<long long>(gridDim.x) * THREADS) {
     const long long b = u / L16;
     const long long col = u - b * L16;
-    const uint4* d = data + b * k * L16 + col;
-    uint4* o = out + b * r * L16 + col;
-    for (int i0 = 0; i0 < r; i0 += GROUP) {
-      uint32_t acc[GROUP][4];
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) acc[g][w] = 0u;
-      for (int j = 0; j < k; ++j) {
-        uint32_t x[4], m[4][8];
-        unpack(__ldg(d + j * L16), x);
-        bit_masks(x, m);
-#pragma unroll
-        for (int g = 0; g < GROUP; ++g)
-          if (i0 + g < r) mul_acc(acc[g], x, m, cst, i0 + g, j);
-      }
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g)
-        if (i0 + g < r)
-          o[(i0 + g) * L16] =
-              make_uint4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-    }
+    gf_unit_generic(cst, data + b * k * L16 + col, out + b * r * L16 + col,
+                    L16, r, k);
   }
 }
 

@@ -2,10 +2,13 @@
 
 Port of the JAX reference's ``_fused_ingest_pallas``
 (``repro/kernels/ops.py``), which issues the SHA-1 and GF kernels under
-one jit.  ``csrc/fused_ingest.cu`` is one launch with two roles: SHA-1
-blocks that hash each packed chunk, padding it on the device, and GF
-blocks that encode it.  It reads only the packed ``(B, k, Lp)`` bytes and
-each chunk's length and piece length: no host-built message schedule.
+one jit.  ``csrc/fused_ingest.cu`` is one launch with two roles: hashing
+blocks on K4's warp-specialised rounds, whose assembler warps stage each
+packed chunk from the slab and pad it on the device, and encoding
+blocks on K1's bit-plane product, whose constants (``gf_matmul``'s, built
+once per matrix and tables) this wrapper passes.  It reads only the
+packed ``(B, k, Lp)`` bytes and each chunk's length and piece length: no
+host-built message schedule.
 
 A CPU tensor takes the plain version (``ref.fused_ingest_ref``); a CUDA
 tensor launches the kernel or raises.
@@ -17,7 +20,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.gf_matmul import MAX_DIM, TILE_L, _device_matrix
+from repro_torch.kernels.gf_matmul import (ALIGN, MAX_DIM, TILE_L,
+                                          _constants, _device_matrix,
+                                          host_bytes)
 from repro_torch.kernels.launches import KERNELS
 from repro_torch.kernels.tables import Tables, tables
 
@@ -25,7 +30,13 @@ from repro_torch.kernels.tables import Tables, tables
 def launch(M: torch.Tensor, data: torch.Tensor, nbytes: torch.Tensor,
            piece_lens: torch.Tensor, words: torch.Tensor, enc: torch.Tensor,
            t: Tables) -> None:
-    """Launch the CUDA kernel: words (B,5) and enc (B,n,Lp) = M x data."""
+    """Launch the CUDA kernel: words (B,5) and enc (B,n,Lp) = M x data.
+
+    ``M`` is a device matrix made by ``gf_matmul._device_matrix``, whose
+    host bytes give the kernel's constants without a copy back; ``t`` the
+    device's tables.  Neither synchronises nor copies to the host, so a
+    CUDA graph can capture it once a first call has built the constants.
+    """
     dev = data.device
     if dev.type != "cuda":
         raise ValueError(f"fused_ingest kernel needs CUDA tensors, got {dev}")
@@ -54,16 +65,23 @@ def launch(M: torch.Tensor, data: torch.Tensor, nbytes: torch.Tensor,
                          f"{TILE_L}")
     for name, x in (("M", M), ("data", data), ("nbytes", nbytes),
                     ("piece_lens", piece_lens), ("words", words),
-                    ("enc", enc), ("klog", t.gf_klog), ("kexp", t.gf_kexp)):
+                    ("enc", enc)):
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"fused_ingest: {name} must be contiguous on "
                              f"{dev}")
-    if data.data_ptr() % 4 or enc.data_ptr() % 4:
-        raise ValueError("fused_ingest: data and enc must be 4-byte aligned")
+    if data.data_ptr() % ALIGN or enc.data_ptr() % ALIGN:
+        raise ValueError(f"fused_ingest: data and enc must be {ALIGN}-byte "
+                         f"aligned")
+    mbytes = host_bytes(M)
+    if mbytes is None:
+        raise ValueError("fused_ingest: M must come from "
+                         "gf_matmul._device_matrix (the kernel's constants "
+                         "are built from its host bytes)")
+    host, consts = _constants(mbytes, r, k, t, dev)
     err = _build.library().sears_fused_ingest(
-        M.data_ptr(), t.gf_klog.data_ptr(), t.gf_kexp.data_ptr(),
-        data.data_ptr(), nbytes.data_ptr(), piece_lens.data_ptr(),
-        words.data_ptr(), enc.data_ptr(), B, r, k, Lp,
+        host.ctypes.data, consts.data_ptr(), data.data_ptr(),
+        nbytes.data_ptr(), piece_lens.data_ptr(), words.data_ptr(),
+        enc.data_ptr(), B, r, k, Lp,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_ingest")
     KERNELS["fused_ingest"] += 1

@@ -16,6 +16,7 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -29,12 +30,26 @@ MAX_DIM = 128  # codes have n <= 128 (rs_code.generator_matrix)
 ALIGN = 16  # bytes: the kernel moves data and out in 16-byte words
 
 
+# The host bytes of each matrix ``_device_matrix`` made, by the tensor's
+# id beside a weak reference to it: the fused kernel's wrapper builds its
+# constants from them without a copy back.
+_HOST_BYTES: dict[int, tuple[weakref.ref, bytes]] = {}
+
+
 @functools.lru_cache(maxsize=None)
 def _device_matrix(mbytes: bytes, r: int, k: int,
                    device: torch.device) -> torch.Tensor:
     """Device-resident (r,k) uint8 coding matrix, memoized by content."""
     m = np.frombuffer(mbytes, dtype=np.uint8).reshape(r, k).copy()
-    return torch.from_numpy(m).to(device)
+    t = torch.from_numpy(m).to(device)
+    _HOST_BYTES[id(t)] = (weakref.ref(t), mbytes)
+    return t
+
+
+def host_bytes(M: torch.Tensor) -> bytes | None:
+    """The host bytes of a matrix made by ``_device_matrix``, else None."""
+    ref_, mbytes = _HOST_BYTES.get(id(M), (None, None))
+    return mbytes if ref_ is not None and ref_() is M else None
 
 
 def bitplane_constants(M, t: Tables) -> np.ndarray:

@@ -19,12 +19,6 @@ import torch
 from repro_torch.core.chunking import GEAR_TABLE
 from repro_torch.core.gf256 import GF_EXP, GF_LOG
 
-# Log value the GF kernel gives to the byte 0: any sum with it lands past
-# every real log sum (<= 254 + 254), where the extended exp table is 0 --
-# the branch-free form of the ``m == 0 or d == 0 -> 0`` rule.
-ZERO_LOG = 512
-KEXP_LEN = 1040  # >= 2 * ZERO_LOG + 1, rounded up to 16 bytes
-
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Tables:
@@ -34,10 +28,8 @@ class Tables:
     gear: torch.Tensor     # (256,) int32: the uint32 gear values' bits
     gf_log: torch.Tensor   # (256,) int64: GF log (plain version)
     gf_exp: torch.Tensor   # (510,) int64: doubled GF exp (plain version)
-    gf_klog: torch.Tensor  # (256,) int16: log with 0 -> ZERO_LOG (K5)
-    gf_kexp: torch.Tensor  # (KEXP_LEN,) uint8: exp, 0 past the logs (K5)
     # (256, 8) uint32, on the host: c * 2^b in GF(2^8) in all four bytes
-    # of word [c, b]; K1's bit-plane constants are rows of it
+    # of word [c, b]; K1's and K5's bit-plane constants are rows of it
     gf_bitplane: np.ndarray
 
 
@@ -72,10 +64,6 @@ def load_tables(gear_table: np.ndarray = GEAR_TABLE,
             or np.any(exp > 255):
         raise ValueError("GF log values must lie in [0, 254] and exp "
                          "values in [0, 255]")
-    klog = log.copy()
-    klog[0] = ZERO_LOG
-    kexp = np.zeros(KEXP_LEN, dtype=np.uint8)
-    kexp[:exp.shape[0]] = exp
     c = np.arange(256)[:, None]
     prod = np.where(c == 0, 0,
                     exp[log[np.maximum(c, 1)] + log[1 << np.arange(8)]])
@@ -85,8 +73,6 @@ def load_tables(gear_table: np.ndarray = GEAR_TABLE,
     t = Tables(gear=torch.from_numpy(gear_bits.copy()).to(device),
                gf_log=torch.from_numpy(log).to(device),
                gf_exp=torch.from_numpy(exp).to(device),
-               gf_klog=torch.from_numpy(klog.astype(np.int16)).to(device),
-               gf_kexp=torch.from_numpy(kexp).to(device),
                gf_bitplane=bitplane)
     _TABLES[_key(device)] = t
     return t
