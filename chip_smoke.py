@@ -97,6 +97,21 @@ through the entry points a user calls, on the card:
    attention at the long shape; the rows give TFLOP/s, the share of the
    bound and ``ptxas -v``'s registers and spills for each head dim.
 
+14. ``train``: llama3.2-1b at full width and depth (16 layers) trained
+   through ``Trainer`` with int8 moments at B = 8, S = 512 on
+   ``SyntheticCorpus``, random weights from ``torch.Generator`` seed 0:
+   steps 1-2, the save of the whole train state at step 2 through the
+   trainer's own manager (``engine="kernel"``: K2, K4 and K1 must
+   launch), then steps 3-8, timed, under
+   ``torch.use_deterministic_algorithms``.  Then a crash: a new
+   ``Trainer`` on the same manager, nodes 0, 2, 4, 6, 8 of every cluster
+   dead, ``restore_or_init`` (K1 must decode); the restored state must
+   equal the step-2 state and step 3 run again the uninterrupted step 3,
+   bit for bit.  The line gives the step times and tokens/s, the
+   trainer's peak device memory (steps 1-2 and the save, read before the
+   checks keep the step-2 and step-3 states), the losses, the save's and the restore's seconds,
+   bytes and launches.
+
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
 Each phase prints one JSON line; then the ``{"kernels": [...]}`` line,
@@ -116,6 +131,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -190,6 +206,10 @@ GF_MASK_OPS, GF_ENTRY_OPS = 15, 8
 FUSED_EDGES = (0, 1, 55, 56, 63, 64, 119, 120)
 
 
+# Steps timed after the save (3-8); their median skips the first.
+TRAIN_TIMED_STEPS = 6
+
+
 @dataclasses.dataclass(frozen=True)
 class Sizes:
     users: int = 16
@@ -210,6 +230,8 @@ class Sizes:
     prompt_len: int = 1024
     gen_tokens: int = 32
     long_seq: int = 8192
+    train_batch: int = 8
+    train_seq: int = 512
 
 
 def emit(obj) -> None:
@@ -1073,6 +1095,144 @@ def serve_phase(sizes: Sizes, device, model, params, sync
     return line, (q, k, v)
 
 
+def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
+    """Train llama3.2-1b with int8 moments through ``Trainer``, save the
+    step-2 state through the trainer's own SEARS manager (``kernel``
+    engine), crash, kill n-k nodes of every cluster, restore, and run
+    step 3 again: the restored state must equal the saved one and the
+    rerun step the uninterrupted one, bit for bit."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten_with_path
+
+    cfg = get_config("llama32_1b")
+    if sizes.reduced:
+        cfg = cfg.reduced()
+    B, S = sizes.train_batch, sizes.train_seq
+    dcfg = DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size)
+    tcfg = TrainerConfig(total_steps=2, ckpt_every=2, step_cfg=TrainStepConfig(
+        adamw=AdamWConfig(moment_dtype="int8")))
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    def equal(a, b) -> list[str]:
+        return ["/".join(map(str, path)) for (path, x), (_, y) in zip(
+            flatten_with_path(a), flatten_with_path(b))
+            if x.dtype != y.dtype or x.device != y.device
+            or not torch.equal(x, y)]
+
+    # steps 1-2 and the save at step 2, through Trainer.run
+    tr = Trainer(cfg, dcfg, tcfg, device=device)
+    marks = {}
+
+    def on_step(step, rec):
+        if step == 2:  # the save follows this callback
+            reset_kernels()
+            marks["launches"] = LAUNCHES.snapshot()
+            marks["t"] = time.perf_counter()
+    t0 = time.perf_counter()
+    tr.run(on_step)
+    save_s = time.perf_counter() - marks["t"]
+    run_s = time.perf_counter() - t0
+    # the trainer's own peak: its state, steps 1-2 and the save, before
+    # the checks below keep the step-2 and step-3 states beside it
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    save_launches = LAUNCHES.delta(marks["launches"])
+    save_kernels = dict(KERNELS)
+    ckpt = tr.metrics[-1]
+    losses = [m["loss"] for m in tr.metrics if "loss" in m]
+    state2 = tr.final_state
+
+    # the uninterrupted run on from step 2, deterministic: step 3 is the
+    # restart's reference, steps 3.. are timed
+    torch.use_deterministic_algorithms(True)
+    try:
+        step_s = []
+        state, state3 = state2, None
+        for step in range(2, 2 + TRAIN_TIMED_STEPS):
+            t1 = time.perf_counter()
+            *state, m = tr.step_fn(*state, tr.batch(step))
+            losses.append(float(m["loss"]))  # waits for the step
+            step_s.append(time.perf_counter() - t1)
+            if state3 is None:
+                state3, loss3 = tuple(state), losses[-1]
+        del state
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # crash: a new trainer on the same manager, n-k nodes of every
+    # cluster dead (every systematic piece of half the chunks lost)
+    tr2 = Trainer(cfg, dcfg, tcfg, manager=tr.manager, device=device)
+    del tr
+    gc.collect()
+    for cluster in tr2.manager.store.clusters:
+        cluster.kill_nodes([0, 2, 4, 6, 8])
+    reset_kernels()
+    before = LAUNCHES.snapshot()
+    t1 = time.perf_counter()
+    restored, start = tr2.restore_or_init()
+    sync()
+    restore_s = time.perf_counter() - t1
+    restore_launches = LAUNCHES.delta(before)
+    restore_kernels = dict(KERNELS)
+    restore_diff = equal(restored, state2)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t1 = time.perf_counter()
+        *again, m = tr2.step_fn(*restored, tr2.batch(start))
+        loss3_again = float(m["loss"])
+        rerun_s = time.perf_counter() - t1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rerun_diff = equal(tuple(again), state3)
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in flatten_with_path(state2))
+    del again, restored, state2, state3
+    gc.collect()
+    med = statistics.median(step_s[1:])
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        # each step draws another batch: the later half's mean must fall
+        "loss_falls": statistics.mean(losses[len(losses) // 2:])
+        < statistics.mean(losses[:len(losses) // 2]),
+        "saved_all_bytes": ckpt.get("ckpt_bytes") == nbytes,
+        "restored_step_2": start == 2,
+        "restore_identical": not restore_diff,
+        "rerun_identical": not rerun_diff and loss3_again == loss3}
+    if on_card:
+        checks["save_launched_k1_k2_k4"] = min(
+            save_kernels[k] for k in ("gf_matmul", "gear_fire", "sha1")) > 0
+        checks["restore_decoded_on_k1"] = restore_kernels["gf_matmul"] > 0
+    return {"phase": "train", "card": card, "arch": cfg.name,
+            "layers": cfg.n_layers,
+            "params": cfg.param_count(), "batch": B, "seq": S,
+            "moment_dtype": "int8", "deterministic": "steps 3 on, rerun",
+            "steps_1_2_and_save_seconds": run_s,
+            "step_seconds": step_s, "step_seconds_median": med,
+            "tokens_per_s": B * S / med, "max_memory_allocated": peak,
+            "losses": losses, "state_bytes": nbytes,
+            "save_seconds": save_s, "save_bytes": ckpt.get("ckpt_bytes"),
+            "save_bytes_after_dedup": ckpt.get("ckpt_bytes_after_dedup"),
+            "save_launches": dataclasses.asdict(save_launches),
+            "save_kernels": save_kernels,
+            "killed_nodes_per_cluster": [0, 2, 4, 6, 8],
+            "restore_seconds": restore_s, "restored_step": start,
+            "restore_launches": dataclasses.asdict(restore_launches),
+            "restore_kernels": restore_kernels,
+            "restore_differs": restore_diff,
+            "rerun_step_seconds": rerun_s,
+            "restart_seconds": restore_s + rerun_s,
+            "rerun_differs": rerun_diff, "loss3": loss3,
+            "loss3_again": loss3_again, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
     """Query-key pairs the masks leave live (queries the last S of T)."""
     import numpy as np
@@ -1428,6 +1588,11 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     if device.type == "cuda" and min(r["launches"] for r in flash_rows) < 1:
         raise AssertionError("the flash phase never launched K6's bf16 or "
                              "fp32 kernel")
+    train_line = train_phase(sizes, device, sync, card)
+    emit(train_line)
+    if not train_line["ok"]:
+        raise AssertionError(f"train: checks failed: "
+                             f"{train_line['checks']}")
     return kern + flash_rows
 
 
@@ -1437,6 +1602,9 @@ def main(argv=None) -> int:
                     help="write the kernel build log and the profile "
                          "table to this directory")
     args = ap.parse_args(argv)
+    # cuBLAS reads this when it makes its first handle: the train phase's
+    # deterministic steps need it (torch refuses them without it)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",

@@ -12,6 +12,7 @@ from repro_torch.core.engine import (CodingEngine, NumpyEngine, TorchEngine,
                                      TorchFusedEngine, make_engine)
 from repro_torch.core.hashing import chunk_id, fast_chunk_id
 from repro_torch.core.latency import LatencyParams, calibrate
+from repro_torch.core.radmad import RADMADStore
 from repro_torch.core.repair import RepairManager, RepairReport
 from repro_torch.core.rs_code import RSCode
 from repro_torch.core.scheduler import (BatchScheduler, Request, RequestFuture,
@@ -24,7 +25,7 @@ __all__ = [
     "StorageClass", "partition_pools",
     "CodingEngine", "NumpyEngine", "TorchEngine", "TorchFusedEngine",
     "make_engine",
-    "LatencyParams", "calibrate", "RepairManager",
+    "LatencyParams", "calibrate", "RADMADStore", "RepairManager",
     "RepairReport", "RSCode", "SEARSStore",
     "BatchScheduler", "Request", "RequestFuture", "RequestQueue",
 ]

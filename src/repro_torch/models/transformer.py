@@ -5,19 +5,25 @@ models (and VLM backbones run without patches).  Parameters are a
 nested dict with the reference's leaf paths and stacked
 ``(n_layers, ...)`` layer leaves (``layers/attn/wq`` and so on), so a
 checkpoint of either package restores in the other.  The reference's
-``lax.scan`` over layers is a Python loop over the layer index.  MLA,
-MoE and patch inputs raise ``NotImplementedError`` until their port
-(ROADMAP.md, Queue 1).
+``lax.scan`` over layers is a Python loop over the layer index, and its
+``jax.checkpoint`` of the scanned layer is a per-layer
+``torch.utils.checkpoint`` (``remat``; ``remat_policy="dots"`` saves
+the matmul outputs without batch dims, as the reference's
+``dots_with_no_batch_dims_saveable``).  MLA, MoE and patch inputs raise
+``NotImplementedError`` until their port (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
+from repro_torch.models.losses import chunked_ce
 from repro_torch.tree import tree_map
 
 
@@ -26,6 +32,16 @@ class Spec:
     """Shape and dtype of one parameter leaf."""
     shape: tuple
     dtype: torch.dtype
+
+
+def _save_dots(_ctx, op, *args, **_kw):
+    """Selective-checkpoint policy "dots": keep the outputs of matmuls
+    without batch dims (the projections: ``mm``, and ``bmm`` over a batch
+    of one, which is how ``einsum`` runs them), recompute the rest."""
+    if op == torch.ops.aten.mm.default or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -38,13 +54,18 @@ class TransformerLM(nn.Module):
     """Functional over an explicit parameter dict, as the reference is:
     ``init`` makes the parameters, the other methods take them."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, remat: bool = True,
+                 remat_policy: str | None = None) -> None:
         super().__init__()
         if cfg.use_mla:
             raise _not_ported("MLA attention (use_mla)")
         if cfg.n_experts:
             raise _not_ported("the MoE FFN (n_experts)")
+        if remat_policy not in (None, "nothing", "dots"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         self.cfg = cfg
+        self.remat = remat
+        self.remat_policy = remat_policy
 
     # ------------------------------------------------------------- init ----
     def param_shapes(self) -> dict:
@@ -108,19 +129,51 @@ class TransformerLM(nn.Module):
         h2 = L.rms_norm(x, p["ln2"], self.cfg.norm_eps)
         return x + L.mlp(h2, p["ffn"], self.cfg.act)
 
-    def forward(self, params, batch):
-        """Full-sequence causal forward -> logits (B, S, V)."""
+    def _block(self, x, p, window: int, pos):
+        """One decoder layer over the full sequence."""
         cfg = self.cfg
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        k, v = L.gqa_project_kv(h, p["attn"], cfg, pos)
+        x = x + L.gqa_attend(h, p["attn"], cfg, k=k, v=v, q_pos=pos,
+                             kv_pos=pos, window=window)
+        return self._ffn(x, p)
+
+    def _backbone(self, params, batch):
+        """Full-sequence causal pass -> final hidden states (B, S, D).
+
+        Under ``remat`` and autograd each layer is checkpointed: its
+        activations are recomputed in the backward pass (all of them, or
+        all but the matmul outputs under ``remat_policy="dots"``).
+        """
         x = self._embed(params, batch["tokens"], batch.get("patches"))
         pos = torch.arange(x.shape[1], device=x.device)
+        remat = self.remat and torch.is_grad_enabled()
+        kw = {}
+        if self.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
         for i, window in enumerate(self._windows()):
             p = self._layer(params, i)
-            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            k, v = L.gqa_project_kv(h, p["attn"], cfg, pos)
-            x = x + L.gqa_attend(h, p["attn"], cfg, k=k, v=v, q_pos=pos,
-                                 kv_pos=pos, window=window)
-            x = self._ffn(x, p)
-        return self._logits(params, x)
+            if remat:
+                x = ckpt.checkpoint(self._block, x, p, window, pos,
+                                    use_reentrant=False, **kw)
+            else:
+                x = self._block(x, p, window, pos)
+        return x
+
+    def forward(self, params, batch):
+        """Full-sequence causal forward -> logits (B, S, V)."""
+        return self._logits(params, self._backbone(params, batch))
+
+    def loss(self, params, batch):
+        """Next-token CE, masked to text positions; chunked over the
+        sequence so (B, S, V) fp32 logits never materialize."""
+        x = self._backbone(params, batch)
+        tokens = batch["tokens"]
+        P = x.shape[1] - tokens.shape[1]  # prepended patch positions
+        table = params.get("unembed", params["embed"])
+        return chunked_ce(x, table, params["final_norm"], tokens,
+                          self.cfg.norm_eps, skip_prefix=P)
 
     # ------------------------------------------------------------ cache ----
     def init_cache(self, B: int, T: int, device=None) -> dict:

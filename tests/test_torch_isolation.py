@@ -58,7 +58,11 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                      "repro_torch.models.transformer",
                      "repro_torch.models.api",
                      "repro_torch.checkpoint.manager",
-                     "repro_torch.launch.serve"):
+                     "repro_torch.launch.serve",
+                     "repro_torch.data.pipeline",
+                     "repro_torch.train.trainer",
+                     "repro_torch.launch.train",
+                     "repro_torch.core.radmad"):
             assert name in sys.modules, name
         print("imported", len([m for m in sys.modules
                                if m.startswith("repro_torch")]))
