@@ -47,6 +47,7 @@ test-cache:
 # determinism, cache discipline (exits 1 on any unwaivered finding)
 lint:
 	$(PYTHON) -m repro.lint src tests benchmarks
+	$(PYTHON) -m repro_torch.lint src/repro_torch tests
 
 # skip the slow model/kernel suites; storage core only
 test-fast:

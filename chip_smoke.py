@@ -96,6 +96,10 @@ through the entry points a user calls, on the card:
    version and the model's
    attention at the long shape; the rows give TFLOP/s, the share of the
    bound and ``ptxas -v``'s registers and spills for each head dim.
+   In bf16 K6 is also held and timed (``device_ms`` beside SDPA's) at
+   the attention shapes of two more configs' layers, at the serve batch
+   and prompt: gemma3-1b's (16 stored query heads, one KV head, head dim
+   256, window 512) and internlm2-20b's (48:8 heads, head dim 128).
 
 14. ``train``: llama3.2-1b at full width and depth (16 layers) trained
    through ``Trainer`` with int8 moments at B = 8, S = 512 on
@@ -109,8 +113,28 @@ through the entry points a user calls, on the card:
    equal the step-2 state and step 3 run again the uninterrupted step 3,
    bit for bit.  The line gives the step times and tokens/s, the
    trainer's peak device memory (steps 1-2 and the save, read before the
-   checks keep the step-2 and step-3 states), the losses, the save's and the restore's seconds,
-   bytes and launches.
+   checks keep the step-2 and step-3 states), the losses, the save's
+   and the restore's seconds, bytes and launches.
+15. ``dense_configs``: after ``train``, with the card freed, three more
+   dense models at full width (``DENSE_CONFIGS``), random bf16 weights
+   made on the card from ``torch.Generator`` seed 0: gemma3-1b (26
+   layers, head dim 256, a 512-token window on five of every six layers,
+   4 query heads padded to 16, one KV head), internlm2-20b (48 layers,
+   d 6144, 48:8 heads) and deepseek-coder-33b cut to 24 of its 62 layers
+   (56 query heads padded to 64).  gemma3-1b's weights are saved through
+   ``SEARSCheckpointManager`` on ``engine="fused"`` (K2 and K5 must
+   launch), nodes 0, 2, 4, 6, 8 of every cluster are killed, and the
+   restore (K1 must decode) must equal the save bit for bit; it serves
+   from that copy.  Each model then runs the serve check of phase 12
+   (``decode_vs_prefill``: 4 x 1024-token prompts, 32 greedy tokens, on
+   ``SERVE_SEEDS``, under ``SERVE_CACHE_TOL`` / ``SERVE_LOGIT_TOL``, or
+   the config's own gates of ``SERVE_GATES``, each with the shifted
+   control above it).
+   One line per config: its layers (and the cut), parameters and stored
+   bytes, init seconds, the peak of ``max_memory_allocated``, prefill
+   and decode tokens/s, the check's readings, and for gemma3-1b the
+   save's and restore's seconds and launches; each beside the card's
+   name and power limit.
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
@@ -173,6 +197,10 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # |plain| < FLASH_GATE_SPLIT (there the relative term is under 2.5e-4);
 # c, the largest |got - plain| / (2^-8 |plain|) where |plain| >= it.
 FLASH_SEEDS = (13, 14)
+# bf16 shapes of more configs' attention layers, at the serve batch and
+# prompt: (name, stored query heads, KV heads, head dim, window)
+LAYER_SHAPES = (("gemma3_layer", 16, 1, 256, 512),
+                ("internlm2_layer", 48, 8, 128, 0))
 FLASH_GATE_SPLIT = 2.0 ** -4
 FLASH_BF16_C = 9.0
 FLASH_BF16_A = 3e-3
@@ -189,6 +217,14 @@ FLASH_BF16_A = 3e-3
 SERVE_SEEDS = (0, 1, 2)
 SERVE_CACHE_TOL = 5e-2
 SERVE_LOGIT_TOL = 5e-2
+# Config-specific serve gates, (cache, logits), by the rule PERF.md wrote
+# before any reading (section 5, the dense configs): twice the config's
+# largest reading over the three seeds, rounded up to one significant
+# digit, kept only while its shifted control reads above it.
+# internlm2-20b read 0.0704 at most on an H100 80GB HBM3 at 700 W (its 48
+# layers carry the two paths' bf16 roundings further: its layer 15 read
+# 0.0296), its shifted control 1.45-1.64.
+SERVE_GATES = {"internlm2_20b": (2e-1, 2e-1)}
 # SHA-1 integer operations per 64-byte block, in the card's 3-input
 # forms: 64 schedule words x (two 3-input XORs (LOP3) + a rotate) + 80
 # rounds x (f as one LOP3, two adds for f + e + W + K, rotl(a, 5) + X as
@@ -208,6 +244,15 @@ FUSED_EDGES = (0, 1, 55, 56, 63, 64, 119, 120)
 
 # Steps timed after the save (3-8); their median skips the first.
 TRAIN_TIMED_STEPS = 6
+# The dense configs served after the train phase, at full width: (arch,
+# layers kept, None for all of them).  deepseek-coder-33b holds 0.545e9
+# parameters a layer: its 62 layers (68.5 GB of bf16) leave an 80 GB card
+# no room for the cache and the check, so it keeps 24 (27 GB).  The
+# first config's weights go through a SEARS checkpoint before it serves.
+DENSE_CONFIGS = (("gemma3_1b", None), ("internlm2_20b", None),
+                 ("deepseek_coder_33b", 24))
+# nodes killed in every cluster before a degraded restore: n - k of (10,5)
+KILLED_NODES = (0, 2, 4, 6, 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -993,7 +1038,9 @@ def checkpoint_phase(sizes: Sizes, device, fused_engine, sync
     return line, model, restored
 
 
-def decode_vs_prefill(model, params, tokens, n: int, device, sync) -> dict:
+def decode_vs_prefill(model, params, tokens, n: int, device, sync,
+                      cache_tol: float = SERVE_CACHE_TOL,
+                      logit_tol: float = SERVE_LOGIT_TOL) -> dict:
     """Serve ``tokens`` to ``n`` greedy tokens, then one prefill over the
     prompt and the n-1 tokens fed back.  Decode step i fed token i at
     slot P+i, so the slots P..P+n-2 of both caches hold the same tokens'
@@ -1015,7 +1062,7 @@ def decode_vs_prefill(model, params, tokens, n: int, device, sync) -> dict:
     scale = float(ext.abs().max())
     d = (logits - ext).abs()
     top2 = ext.topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > SERVE_LOGIT_TOL * scale
+    decided = (top2[:, 0] - top2[:, 1]) > logit_tol * scale
     agree = logits.argmax(-1) == ext.argmax(-1)
     out = {"seed": None, "extended_prefill_seconds": ext_s,
            "logit_scale": scale, "logit_max_abs_err": float(d.max()),
@@ -1038,10 +1085,10 @@ def decode_vs_prefill(model, params, tokens, n: int, device, sync) -> dict:
     out["shifted_rel_err"] = float((got - want).abs().max()
                                    / want.abs().max())
     out["ok"] = (out["finite"] and out["argmax_decided_agree"]
-                 and out["logit_rel_err"] <= SERVE_LOGIT_TOL
+                 and out["logit_rel_err"] <= logit_tol
                  and max(out["cache_rel_err_k"] + out["cache_rel_err_v"])
-                 <= SERVE_CACHE_TOL
-                 and out["shifted_rel_err"] > SERVE_CACHE_TOL)
+                 <= cache_tol
+                 and out["shifted_rel_err"] > cache_tol)
     return {"res": res, "check": out}
 
 
@@ -1172,7 +1219,7 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     del tr
     gc.collect()
     for cluster in tr2.manager.store.clusters:
-        cluster.kill_nodes([0, 2, 4, 6, 8])
+        cluster.kill_nodes(list(KILLED_NODES))
     reset_kernels()
     before = LAUNCHES.snapshot()
     t1 = time.perf_counter()
@@ -1221,7 +1268,7 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
             "save_bytes_after_dedup": ckpt.get("ckpt_bytes_after_dedup"),
             "save_launches": dataclasses.asdict(save_launches),
             "save_kernels": save_kernels,
-            "killed_nodes_per_cluster": [0, 2, 4, 6, 8],
+            "killed_nodes_per_cluster": list(KILLED_NODES),
             "restore_seconds": restore_s, "restored_step": start,
             "restore_launches": dataclasses.asdict(restore_launches),
             "restore_kernels": restore_kernels,
@@ -1231,6 +1278,144 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
             "rerun_differs": rerun_diff, "loss3": loss3,
             "loss3_again": loss3_again, "checks": checks,
             "ok": all(checks.values())}
+
+
+def dense_configs_phase(sizes: Sizes, device, fused_engine, sync,
+                        card: str = "") -> list[dict]:
+    """The configs of ``DENSE_CONFIGS`` at full width, one at a time on a
+    freed card: weights from seed 0 (the first config's through a SEARS
+    checkpoint restored with n-k nodes of every cluster dead, bit for
+    bit), then the serve check on each of ``SERVE_SEEDS``.  Returns one
+    line per config, ``ok`` false if a check failed."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import SEARSCheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
+    from repro_torch.models import api
+    from repro_torch.tree import flatten_with_path
+
+    on_card = device.type == "cuda"
+    B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
+    lines = []
+    for arch, depth in DENSE_CONFIGS:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        full_layers = cfg.n_layers
+        if sizes.reduced:
+            cfg = cfg.reduced()
+        elif depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        model = api.get_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        sync()
+        init_s = time.perf_counter() - t0
+        leaves = flatten_with_path(params)
+        nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+        windows = model._windows()
+        line = {"phase": "dense_configs", "card": card, "arch": cfg.name,
+                "layers": cfg.n_layers, "full_layers": full_layers,
+                "depth_cut": None if cfg.n_layers == full_layers
+                else f"{full_layers} -> {cfg.n_layers} layers",
+                "d_model": cfg.d_model, "heads": cfg.n_heads,
+                "stored_heads": cfg.h_store, "kv_heads": cfg.n_kv_heads,
+                "head_dim": cfg.head_dim, "window": cfg.sliding_window,
+                "layers_past_window": sum(0 < w < P + n for w in windows),
+                "params": cfg.param_count(),
+                "stored_params": sum(t.numel() for _, t in leaves),
+                "stored_bytes": nbytes, "init_seconds": init_s,
+                "init_peak_bytes": torch.cuda.max_memory_allocated()
+                if on_card else None}
+        del leaves
+        checks = {}
+        if arch == DENSE_CONFIGS[0][0]:
+            mgr = SEARSCheckpointManager(engine=fused_engine)
+            reset_kernels()
+            before = LAUNCHES.snapshot()
+            t0 = time.perf_counter()
+            saved = mgr.save(1, params)
+            save_s = time.perf_counter() - t0
+            save_launches = LAUNCHES.delta(before)
+            save_kernels = dict(KERNELS)
+            for cluster in mgr.store.clusters:
+                cluster.kill_nodes(list(KILLED_NODES))
+            reset_kernels()
+            before = LAUNCHES.snapshot()
+            t0 = time.perf_counter()
+            restored = mgr.restore(params)
+            sync()
+            restore_s = time.perf_counter() - t0
+            restore_launches = LAUNCHES.delta(before)
+            restore_kernels = dict(KERNELS)
+            differs = ["/".join(path) for (path, a), (_, b) in zip(
+                flatten_with_path(restored), flatten_with_path(params))
+                if a.dtype != b.dtype or a.device != b.device
+                or not torch.equal(a, b)]
+            # serve from the restored copy; free the store's pieces now,
+            # not in a collection inside the serve timing
+            params = restored
+            del restored, mgr
+            gc.collect()
+            line.update(
+                save_seconds=save_s, save_bytes=saved["bytes"],
+                save_mib_per_s=saved["bytes"] / 2**20 / save_s,
+                save_launches=dataclasses.asdict(save_launches),
+                save_kernels=save_kernels,
+                killed_nodes_per_cluster=list(KILLED_NODES),
+                restore_seconds=restore_s,
+                restore_mib_per_s=saved["bytes"] / 2**20 / restore_s,
+                restore_launches=dataclasses.asdict(restore_launches),
+                restore_kernels=restore_kernels, restore_differs=differs)
+            checks["saved_all_bytes"] = saved["bytes"] == nbytes
+            checks["restore_identical"] = not differs
+            if on_card:
+                checks["save_launched_k2_k5"] = min(
+                    save_kernels[k] for k in ("gear_fire", "fused_ingest")) > 0
+                checks["restore_decoded_on_k1"] = \
+                    restore_kernels["gf_matmul"] > 0
+        cache_tol, logit_tol = SERVE_GATES.get(
+            arch, (SERVE_CACHE_TOL, SERVE_LOGIT_TOL))
+        serve_checks, times, first = [], [], None
+        with torch.no_grad():
+            for seed in SERVE_SEEDS:
+                tokens = torch.from_numpy(np.random.default_rng(
+                    seed).integers(0, cfg.vocab_size, size=(B, P))).to(device)
+                r = decode_vs_prefill(model, params, tokens, n, device, sync,
+                                      cache_tol, logit_tol)
+                r["check"]["seed"] = seed
+                serve_checks.append(r["check"])
+                times.append((r["res"]["prefill_s"], r["res"]["decode_s"]))
+                if first is None:
+                    first = r["res"]["tokens"]
+                del r
+        prefill_s = statistics.median(t[0] for t in times)
+        decode_s = statistics.median(t[1] for t in times)
+        checks["tokens_in_vocab"] = bool(
+            first.shape == (B, n)
+            and ((first >= 0) & (first < cfg.vocab_size)).all())
+        checks["decode_vs_prefill"] = all(c["ok"] for c in serve_checks)
+        line.update(
+            batch=B, prompt_len=P, tokens=n,
+            prefill_seconds=[t[0] for t in times],
+            decode_seconds=[t[1] for t in times],
+            prefill_tok_per_s=B * P / prefill_s,
+            decode_tok_per_s=B * (n - 1) / decode_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated()
+            if on_card else None,
+            cache_tol=cache_tol, logit_tol=logit_tol,
+            decode_vs_prefill=serve_checks,
+            first_tokens=first[:, :8].tolist(), checks=checks,
+            ok=all(checks.values()))
+        lines.append(line)
+        del model, params, first
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return lines
 
 
 def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -1285,6 +1470,17 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+def flash_bound(q, k, v, causal: bool, window: int) -> float:
+    """K6's bf16 bound in ms: each input read once and the output written
+    once at HBM's rate, or 4 hd operations a live pair at the bf16 tensor
+    core peak, whichever is larger."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    ops_n = 4.0 * B * H * hd * live_pairs(S, T, causal, window)
+    return max(nbytes / PEAK_BYTES_PER_S, ops_n / PEAK_BF16_TC_PER_S) * 1e3
+
+
 def flash_phase(sizes: Sizes, device, layer0, reps: int
                 ) -> tuple[dict, list[dict]]:
     """K6 against its plain version and the model's attention at every
@@ -1314,6 +1510,7 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
     # (name, (q, k, v), causal, window, seed): every bf16 shape on each
     # of FLASH_SEEDS (layer 0's on its one prompt), the fp32 copies once
     Ls = sizes.long_seq
+    Bs, Ps = sizes.serve_batch, sizes.prompt_len
     cases = [("serve_layer0", layer0, True, 0, 0)]
     fp32_cases = [("serve_layer0_fp32", cast(layer0, f32), True, 0, 0)]
     for seed in FLASH_SEEDS:
@@ -1329,7 +1526,13 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
                   for nm, x, c, w in small]
         cases.append(("hd256", rand(rng, 2, 256, 768, 8, 1, 256, bf16),
                       True, 0, seed))
+        # two more configs' attention at the serve batch and prompt
+        layers = {name: (rand(rng, Bs, Ps, Ps, H, KV, hd, bf16), window)
+                  for name, H, KV, hd, window in LAYER_SHAPES}
+        cases += [(name, qkv, True, window, seed)
+                  for name, (qkv, window) in layers.items()]
         if seed == FLASH_SEEDS[0]:
+            layers0 = layers
             long0 = long
             fp32_cases.append(("long_fp32", cast(long, f32), True, 0, seed))
             fp32_cases += [(nm, x, c, w, seed) for nm, x, c, w in small]
@@ -1420,13 +1623,19 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
     # long shape in bf16 and fp32, and at layer 0's shape
     run = timer(device)
 
-    def sdpa(q, k, v) -> tuple[float, float | None]:
-        """SDPA's per-call and device-only milliseconds."""
+    def sdpa(q, k, v, window: int = 0) -> tuple[float, float | None]:
+        """SDPA's per-call and device-only milliseconds (causal; with a
+        window, the causal window as a boolean mask)."""
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        S, T = q.shape[1], k.shape[1]
+        kw = {"is_causal": True} if not window else {
+            "attn_mask": L._mask(torch.arange(T - S, T, device=device),
+                                 torch.arange(T, device=device), window,
+                                 True)}
 
         def call():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  **kw)
         return run(call, reps), device_time([call], device)
 
     (q, k, v) = long0
@@ -1453,7 +1662,17 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
             lib = sdpa(q, k, v)
             fp32_lib = sdpa(q32, k32, v32)
             serve_lib = sdpa(*layer0)
-    del q32, k32, v32
+        # the other configs' layers: the device alone, K6 beside SDPA
+        by_shape = {"serve_layer0": (serve_dev_ms, serve_lib[1],
+                                     flash_bound(*layer0, True, 0))}
+        for name, (qkv, window) in layers0.items():
+            by_shape[name] = (
+                device_time([lambda qkv=qkv, window=window:
+                             ops.flash_attention(*qkv, window=window)],
+                            device),
+                sdpa(*qkv, window=window)[1] if cuda else None,
+                flash_bound(*qkv, True, window))
+    del q32, k32, v32, layers0
     pairs = live_pairs(S, T, True, 0)
     ops_n = 4.0 * B * H * hd * pairs
     usage = ptxas_usage(_build.BUILD_INFO["log"])
@@ -1485,7 +1704,12 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
             "shape": row["shape"], "bytes": nbytes, "ops": ops_n})
     rows[0].update(
         fp32_ms=fp32_ms, model_attention_ms=model_ms,
-        tol={"c": FLASH_BF16_C, "a": FLASH_BF16_A})
+        tol={"c": FLASH_BF16_C, "a": FLASH_BF16_A},
+        device_ms_by_shape={k: v[0] for k, v in by_shape.items()},
+        library_device_ms_by_shape={k: v[1] for k, v in by_shape.items()},
+        bound_ms_by_shape={k: v[2] for k, v in by_shape.items()},
+        shape_by_name={name: [Bs, Ps, Ps, H, KV, hd, window] for
+                       name, H, KV, hd, window in LAYER_SHAPES})
     rows[1]["tol"] = FLASH_TOL["float32"]
     line = {"phase": "flash", "launches": launches, "shapes": shapes,
             "bf16_gate": {"c": FLASH_BF16_C, "a": FLASH_BF16_A,
@@ -1581,6 +1805,7 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     del params, model
     gc.collect()
     flash_line, flash_rows = flash_phase(sizes, device, layer0, sizes.reps)
+    del layer0
     emit(flash_line)
     if not serve_line["ok"]:
         raise AssertionError("serve: decode and the extended prefill "
@@ -1593,6 +1818,14 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     if not train_line["ok"]:
         raise AssertionError(f"train: checks failed: "
                              f"{train_line['checks']}")
+    dense_lines = dense_configs_phase(sizes, device, fused_engine, sync,
+                                      card)
+    for line in dense_lines:
+        emit(line)
+    bad = [(line["arch"], line["checks"]) for line in dense_lines
+           if not line["ok"]]
+    if bad:
+        raise AssertionError(f"dense_configs: checks failed: {bad}")
     return kern + flash_rows
 
 
@@ -1625,6 +1858,7 @@ def main(argv=None) -> int:
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "library_device_ms", "staged_ms", "staged_device_ms",
         "max_abs_err_by_shape", "device_ms_by_shape",
+        "library_device_ms_by_shape", "bound_ms_by_shape", "shape_by_name",
         "staged_device_ms_by_shape", "longest_chain_rounds_by_shape",
         "longest_chain_rounds", "device_ms_all_8k",
         "device_ms_one_8k", "tflop_per_s",

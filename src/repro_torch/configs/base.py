@@ -186,7 +186,7 @@ ARCH_IDS = [
 
 
 # ids whose configuration (and model family) the port holds so far
-PORTED = ("llama32_1b",)
+PORTED = ("llama32_1b", "gemma3_1b", "internlm2_20b", "deepseek_coder_33b")
 
 
 def get_config(arch: str) -> ModelConfig:

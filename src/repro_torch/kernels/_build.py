@@ -110,6 +110,7 @@ def build(out_dir: pathlib.Path) -> pathlib.Path:
         logs += _run_all([[nvcc, *ARCH, "-shared", "-o", lib_tmp, *objs]])
         (out_dir / LOG_NAME).write_text("\n".join(logs))
         os.replace(lib_tmp, out_dir / LIB_NAME)  # atomic: racing builds agree
+    # searslint: ignore[begin-purity] -- build-once diagnostics, read by no plan
     BUILD_INFO.update(seconds=time.perf_counter() - t0, built=True,
                       log="\n".join(logs))
     return out_dir / LIB_NAME
@@ -122,6 +123,7 @@ def library() -> ctypes.CDLL:
     if not path.exists():
         build(path.parent)
     elif (path.parent / LOG_NAME).exists():
+        # searslint: ignore[begin-purity] -- load-once diagnostics, read by no plan
         BUILD_INFO["log"] = (path.parent / LOG_NAME).read_text()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

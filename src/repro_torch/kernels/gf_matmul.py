@@ -42,6 +42,7 @@ def _device_matrix(mbytes: bytes, r: int, k: int,
     """Device-resident (r,k) uint8 coding matrix, memoized by content."""
     m = np.frombuffer(mbytes, dtype=np.uint8).reshape(r, k).copy()
     t = torch.from_numpy(m).to(device)
+    # searslint: ignore[begin-purity] -- memo side table, read by no plan
     _HOST_BYTES[id(t)] = (weakref.ref(t), mbytes)
     return t
 

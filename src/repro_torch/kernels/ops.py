@@ -298,7 +298,6 @@ def fused_hash_encode_blobs(code, blobs: list[bytes], device="cuda"
 
 
 # ----------------------------------------------------------- attention ----
-# searslint: ignore[counter-launch] -- not a storage data-plane dispatch
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None) -> torch.Tensor:
     """Fused GQA flash attention: the hand-written kernel on a CUDA
