@@ -101,8 +101,8 @@ through the entry points a user calls, on the card:
    and prompt: gemma3-1b's (16 stored query heads, one KV head, head dim
    256, window 512) and internlm2-20b's (48:8 heads, head dim 128).
 
-14. ``train``: llama3.2-1b at full width and depth (16 layers) trained
-   through ``Trainer`` with int8 moments at B = 8, S = 512 on
+14. ``train``: llama3.2-1b at full width, cut to 4 of its 16 layers
+   (``TRAIN_LAYERS``), trained through ``Trainer`` with int8 moments at B = 8, S = 512 on
    ``SyntheticCorpus``, random weights from ``torch.Generator`` seed 0:
    steps 1-2, the save of the whole train state at step 2 through the
    trainer's own manager (``engine="kernel"``: K2, K4 and K1 must
@@ -135,6 +135,29 @@ through the entry points a user calls, on the card:
    and decode tokens/s, the check's readings, and for gemma3-1b the
    save's and restore's seconds and launches; each beside the card's
    name and power limit.
+16. ``moe_mla_configs``: after ``dense_configs``, on a freed card, the
+   same for the MoE, MLA and VLM configs (``MOE_MLA_CONFIGS``):
+   granite-moe-1b (all 24 layers, 32 experts top-8; its weights saved
+   through the ``fused`` store, K2 and K5 must launch, and restored with
+   nodes 0, 2, 4, 6, 8 of every cluster dead, K1 must decode, bit for
+   bit), deepseek-v2-236b cut to 4 of its 60 layers (160 routed experts
+   top-6, 2 shared, MLA with a 512-wide latent cache) and phi-3-vision
+   (all 32 layers, 576 seeded patch embeddings prefilled before each
+   prompt).  An MoE config serves at its published capacity factor
+   (1.25; timed, with the share of routed slots dropped at prefill and
+   at decode) and runs the serve check at ``capacity_factor = E / k``,
+   which drops nothing: a decode group is the 4 new tokens alone, so
+   under drops decode and prefill differ by design.  The check counts
+   the (token, layer) pairs whose top-k set differs between decode and
+   the extended prefill, with their router margins, and reads the cache
+   and logits again over the slots no flip reached, which must stay
+   under the base gates (a flip moves its token's later entries:
+   ``SERVE_GATES`` gives both MoE configs their own gates by the rule
+   in ``PERF.md``).  One line per
+   config, as ``dense_configs`` prints them, plus the active parameters
+   and the routing readings.  The ``kernels`` line then gives, for each
+   kernel, its launches in the checkpoints of ``train``, gemma3-1b and
+   granite-moe-1b (``checkpoint_launches``).
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
@@ -223,8 +246,18 @@ SERVE_LOGIT_TOL = 5e-2
 # digit, kept only while its shifted control reads above it.
 # internlm2-20b read 0.0704 at most on an H100 80GB HBM3 at 700 W (its 48
 # layers carry the two paths' bf16 roundings further: its layer 15 read
-# 0.0296), its shifted control 1.45-1.64.
-SERVE_GATES = {"internlm2_20b": (2e-1, 2e-1)}
+# 0.0296), its shifted control 1.45-1.64.  The MoE configs read above
+# where decode and the prefill route a token to different experts (a
+# near tie of the router broken apart by the two paths' roundings; the
+# token's later cache entries move with it): granite-moe-1b's cache
+# 0.0726 (logits 0.0128, under 0.05; control 0.636-0.712),
+# deepseek-v2-236b's (4 layers, 160 experts) cache 0.181 and logits
+# 0.0983 (control 1.26-1.53); over the slots no flip reached they read
+# 0.0149 and 0.0183, and there the check holds them to the base gates
+# (``unflipped_*``).
+SERVE_GATES = {"internlm2_20b": (2e-1, 2e-1),
+               "granite_moe_1b": (2e-1, SERVE_LOGIT_TOL),
+               "deepseek_v2_236b": (4e-1, 2e-1)}
 # SHA-1 integer operations per 64-byte block, in the card's 3-input
 # forms: 64 schedule words x (two 3-input XORs (LOP3) + a rotate) + 80
 # rounds x (f as one LOP3, two adds for f + e + W + K, rotl(a, 5) + X as
@@ -244,6 +277,12 @@ FUSED_EDGES = (0, 1, 55, 56, 63, 64, 119, 120)
 
 # Steps timed after the save (3-8); their median skips the first.
 TRAIN_TIMED_STEPS = 6
+# Layers of llama3.2-1b the train phase keeps (of 16).  Its save and
+# degraded restore are host-bound and scale with the state's bytes: at
+# all 16 layers (11.45 GB) they took 600 s of a 1227 s run on a slow
+# host, over the script's limit beside the later phases; 4 layers keep
+# 41% of the state (the embedding is a fifth of the parameters).
+TRAIN_LAYERS = 4
 # The dense configs served after the train phase, at full width: (arch,
 # layers kept, None for all of them).  deepseek-coder-33b holds 0.545e9
 # parameters a layer: its 62 layers (68.5 GB of bf16) leave an 80 GB card
@@ -251,6 +290,16 @@ TRAIN_TIMED_STEPS = 6
 # first config's weights go through a SEARS checkpoint before it serves.
 DENSE_CONFIGS = (("gemma3_1b", None), ("internlm2_20b", None),
                  ("deepseek_coder_33b", 24))
+# The MoE, MLA and VLM configs served after them, at full width: (arch,
+# layers kept, None for all of them).  deepseek-v2-236b holds 7.95 GB of
+# bf16 a layer (160 routed experts): ``init`` draws each stacked expert
+# leaf in fp32 beside its bf16 result (5.03e9 elements, 20.1 GB at 4
+# layers), so at 6 layers the init peak would near 80 GB; it keeps 4
+# (33.9 GB with embed and unembed).  granite-moe-1b's weights go through
+# a SEARS checkpoint before it serves; phi-3-vision prefills 576 patch
+# embeddings before each prompt.
+MOE_MLA_CONFIGS = (("granite_moe_1b", None), ("deepseek_v2_236b", 4),
+                   ("phi3_vision_4b", None))
 # nodes killed in every cluster before a degraded restore: n - k of (10,5)
 KILLED_NODES = (0, 2, 4, 6, 8)
 
@@ -1040,24 +1089,38 @@ def checkpoint_phase(sizes: Sizes, device, fused_engine, sync
 
 def decode_vs_prefill(model, params, tokens, n: int, device, sync,
                       cache_tol: float = SERVE_CACHE_TOL,
-                      logit_tol: float = SERVE_LOGIT_TOL) -> dict:
-    """Serve ``tokens`` to ``n`` greedy tokens, then one prefill over the
-    prompt and the n-1 tokens fed back.  Decode step i fed token i at
-    slot P+i, so the slots P..P+n-2 of both caches hold the same tokens'
-    k/v, and the last step's logits and the prefill's are for the same
-    position.  Errors are shares of the compared tensor's largest
-    |value|; the cache's per layer."""
+                      logit_tol: float = SERVE_LOGIT_TOL,
+                      patches=None) -> dict:
+    """Serve ``tokens`` (after ``patches``, where given) to ``n`` greedy
+    tokens, then one prefill over the same input and the n-1 tokens fed
+    back.  Decode step i fed token i at slot P+i (P counts the patches),
+    so the slots P..P+n-2 of both caches hold the same tokens' entries
+    (GQA's k/v, MLA's c/kr), and the last step's logits and the
+    prefill's are for the same position.  Errors are shares of the
+    compared tensor's largest |value|; the cache's per layer.  With MoE
+    the check also counts the (token, layer) pairs of those slots whose
+    top-k set differs between decode and the prefill (``flips``), with
+    the router margins the two runs saw there."""
     import torch
     from repro_torch.launch.serve import serve
 
-    B, P = tokens.shape
-    res = serve(model, params, tokens, n, device)
-    gen = res["tokens"]
-    t0 = time.perf_counter()
-    ext, ext_cache = model.prefill(params, {"tokens": torch.cat(
-        [tokens, gen[:, :n - 1]], dim=1)})
-    sync()
-    ext_s = time.perf_counter() - t0
+    P = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    moe = bool(model.cfg.n_experts)
+    model.moe_log = [] if moe else None
+    try:
+        res = serve(model, params, tokens, n, device, patches)
+        serve_log, model.moe_log = model.moe_log, [] if moe else None
+        batch = {"tokens": torch.cat([tokens, res["tokens"][:, :n - 1]],
+                                     dim=1)}
+        if patches is not None:
+            batch["patches"] = patches
+        t0 = time.perf_counter()
+        ext, ext_cache = model.prefill(params, batch)
+        sync()
+        ext_s = time.perf_counter() - t0
+        ext_log = model.moe_log
+    finally:
+        model.moe_log = None
     logits, ext = res["logits"].float(), ext.float()
     scale = float(ext.abs().max())
     d = (logits - ext).abs()
@@ -1073,23 +1136,94 @@ def decode_vs_prefill(model, params, tokens, n: int, device, sync,
            "argmax_decided_rows": int(decided.sum()),
            "argmax_decided_agree": bool(agree[decided].all()),
            "finite": bool(torch.isfinite(logits).all())}
-    dims = (1, 2, 3, 4)
-    for name in ("k", "v"):
+    names = sorted(ext_cache)
+    for name in names:
         got = res["cache"][name][:, :, P:P + n - 1].float()
         want = ext_cache[name][:, :, P:P + n - 1].float()
+        dims = tuple(range(1, got.dim()))
         rel = (got - want).abs().amax(dim=dims) / want.abs().amax(dim=dims)
         out[f"cache_rel_err_{name}"] = rel.tolist()
-    # the check must see a cache one slot off: layer 0's k, shifted
-    got = res["cache"]["k"][0, :, P:P + n - 2].float()
-    want = ext_cache["k"][0, :, P + 1:P + n - 1].float()
+    # the check must see a cache one slot off: layer 0's first entry
+    # (GQA's k, MLA's c), shifted
+    first = "c" if "c" in ext_cache else "k"
+    got = res["cache"][first][0, :, P:P + n - 2].float()
+    want = ext_cache[first][0, :, P + 1:P + n - 1].float()
     out["shifted_rel_err"] = float((got - want).abs().max()
                                    / want.abs().max())
+    if moe:
+        # the same readings over the slots whose routing had not flipped
+        # in any layer before the one read (the cache at layer l comes
+        # from the layers below it); the logits' row only if it never
+        # flipped
+        flips = routing_flips(serve_log, ext_log, model.cfg.n_layers, P, n)
+        first = flips.pop("first_flip")
+        out.update(flips)
+        for name in names:
+            got = res["cache"][name][:, :, P:P + n - 1].float()
+            want = ext_cache[name][:, :, P:P + n - 1].float()
+            rel = []
+            for layer in range(got.shape[0]):
+                clean = first >= layer
+                err = (got[layer] - want[layer]).abs()[clean]
+                rel.append(float(err.max()) / float(want[layer].abs().max())
+                           if err.numel() else None)
+            out[f"unflipped_cache_rel_err_{name}"] = rel
+        clean = first[:, -1] == model.cfg.n_layers
+        out["unflipped_logit_rows"] = int(clean.sum())
+        out["unflipped_logit_rel_err"] = float(d[clean].max()) / scale \
+            if clean.any() else None
     out["ok"] = (out["finite"] and out["argmax_decided_agree"]
                  and out["logit_rel_err"] <= logit_tol
-                 and max(out["cache_rel_err_k"] + out["cache_rel_err_v"])
+                 and max(err for name in names
+                         for err in out[f"cache_rel_err_{name}"])
                  <= cache_tol
                  and out["shifted_rel_err"] > cache_tol)
+    if moe:  # the slots no flip reached, under the base gates
+        out["ok"] = (out["ok"] and all(
+            err <= SERVE_CACHE_TOL for name in names
+            for err in out[f"unflipped_cache_rel_err_{name}"]
+            if err is not None)
+            and (out["unflipped_logit_rel_err"] or 0.0) <= SERVE_LOGIT_TOL)
     return {"res": res, "check": out}
+
+
+def routing_flips(serve_log, ext_log, n_layers: int, P: int, n: int
+                  ) -> dict:
+    """(token, layer) pairs of slots P..P+n-2 whose top-k expert set
+    differs between the decode steps (``serve_log`` after the prefill's
+    layers) and the extended prefill (``ext_log``), with the smaller of
+    the two router margins at each flip, and ``first_flip`` (B, n-1):
+    each slot's first layer with a flip (``n_layers`` for none)."""
+    import torch
+    flips, margins, pairs = 0, [], 0
+    first = None
+    for i in range(n - 1):
+        for layer in range(n_layers):
+            idx, _, margin = serve_log[n_layers * (1 + i) + layer]
+            e_idx, _, e_margin = ext_log[layer]
+            a = idx[:, 0].sort(-1).values
+            b = e_idx[:, P + i].sort(-1).values
+            differ = (a != b).any(-1)
+            if first is None:
+                first = torch.full((idx.shape[0], n - 1), n_layers,
+                                   dtype=torch.long, device=idx.device)
+            first[:, i] = torch.where(differ & (first[:, i] == n_layers),
+                                      layer, first[:, i])
+            pairs += differ.numel()
+            flips += int(differ.sum())
+            margins += torch.minimum(margin[:, 0], e_margin[:, P + i])[
+                differ].tolist()
+    return {"routing_pairs": pairs, "routing_flips": flips,
+            "routing_flip_margins": sorted(margins), "first_flip": first}
+
+
+def drop_shares(log, n_layers: int) -> dict:
+    """The share of routed slots dropped by capacity at prefill (the
+    first ``n_layers`` entries of a ``serve`` log) and at decode."""
+    def share(entries):
+        kept = sum(int(keep.sum()) for _, keep, _ in entries)
+        return 1.0 - kept / sum(keep.numel() for _, keep, _ in entries)
+    return {"prefill": share(log[:n_layers]), "decode": share(log[n_layers:])}
 
 
 def serve_phase(sizes: Sizes, device, model, params, sync
@@ -1158,8 +1292,9 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     from repro_torch.tree import flatten_with_path
 
     cfg = get_config("llama32_1b")
-    if sizes.reduced:
-        cfg = cfg.reduced()
+    full_layers = cfg.n_layers
+    cfg = cfg.reduced() if sizes.reduced else dataclasses.replace(
+        cfg, n_layers=TRAIN_LAYERS)
     B, S = sizes.train_batch, sizes.train_seq
     dcfg = DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size)
     tcfg = TrainerConfig(total_steps=2, ckpt_every=2, step_cfg=TrainStepConfig(
@@ -1257,7 +1392,7 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
             save_kernels[k] for k in ("gf_matmul", "gear_fire", "sha1")) > 0
         checks["restore_decoded_on_k1"] = restore_kernels["gf_matmul"] > 0
     return {"phase": "train", "card": card, "arch": cfg.name,
-            "layers": cfg.n_layers,
+            "layers": cfg.n_layers, "full_layers": full_layers,
             "params": cfg.param_count(), "batch": B, "seq": S,
             "moment_dtype": "int8", "deterministic": "steps 3 on, rerun",
             "steps_1_2_and_save_seconds": run_s,
@@ -1280,25 +1415,88 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
             "ok": all(checks.values())}
 
 
-def dense_configs_phase(sizes: Sizes, device, fused_engine, sync,
-                        card: str = "") -> list[dict]:
-    """The configs of ``DENSE_CONFIGS`` at full width, one at a time on a
-    freed card: weights from seed 0 (the first config's through a SEARS
-    checkpoint restored with n-k nodes of every cluster dead, bit for
-    bit), then the serve check on each of ``SERVE_SEEDS``.  Returns one
-    line per config, ``ok`` false if a check failed."""
-    import numpy as np
+def checkpoint_round_trip(params, fused_engine, sync, on_card: bool
+                          ) -> tuple[object, dict, dict]:
+    """Save ``params`` through ``SEARSCheckpointManager`` on the fused
+    engine, kill ``KILLED_NODES`` of every cluster, restore.  Returns the
+    restored copy, the line's save / restore fields and the checks (K2
+    and K5 on the save, K1 on the restore, on the card; the restore
+    bit for bit the save)."""
     import torch
     from repro_torch.checkpoint import SEARSCheckpointManager
-    from repro_torch.configs.base import get_config
     from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
+    from repro_torch.tree import flatten_with_path
+
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in flatten_with_path(params))
+    mgr = SEARSCheckpointManager(engine=fused_engine)
+    reset_kernels()
+    before = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    saved = mgr.save(1, params)
+    save_s = time.perf_counter() - t0
+    save_launches = LAUNCHES.delta(before)
+    save_kernels = dict(KERNELS)
+    for cluster in mgr.store.clusters:
+        cluster.kill_nodes(list(KILLED_NODES))
+    reset_kernels()
+    before = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    restored = mgr.restore(params)
+    sync()
+    restore_s = time.perf_counter() - t0
+    restore_launches = LAUNCHES.delta(before)
+    restore_kernels = dict(KERNELS)
+    differs = ["/".join(path) for (path, a), (_, b) in zip(
+        flatten_with_path(restored), flatten_with_path(params))
+        if a.dtype != b.dtype or a.device != b.device
+        or not torch.equal(a, b)]
+    # free the store's pieces now, not in a collection inside the serve
+    # timing
+    del mgr
+    gc.collect()
+    fields = dict(
+        save_seconds=save_s, save_bytes=saved["bytes"],
+        save_mib_per_s=saved["bytes"] / 2**20 / save_s,
+        save_launches=dataclasses.asdict(save_launches),
+        save_kernels=save_kernels,
+        killed_nodes_per_cluster=list(KILLED_NODES),
+        restore_seconds=restore_s,
+        restore_mib_per_s=saved["bytes"] / 2**20 / restore_s,
+        restore_launches=dataclasses.asdict(restore_launches),
+        restore_kernels=restore_kernels, restore_differs=differs)
+    checks = {"saved_all_bytes": saved["bytes"] == nbytes,
+              "restore_identical": not differs}
+    if on_card:
+        checks["save_launched_k2_k5"] = min(
+            save_kernels[k] for k in ("gear_fire", "fused_ingest")) > 0
+        checks["restore_decoded_on_k1"] = restore_kernels["gf_matmul"] > 0
+    return restored, fields, checks
+
+
+def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
+                  sync, card: str = "") -> list[dict]:
+    """The configs of ``configs`` ((arch, layers kept) pairs) at full
+    width, one at a time on a freed card: weights from seed 0 (the first
+    config's through a SEARS checkpoint restored with n-k nodes of every
+    cluster dead, bit for bit), then the serve check on each of
+    ``SERVE_SEEDS``.  A VLM config prefills seeded patch embeddings
+    before each prompt.  An MoE config serves at its published capacity
+    factor (timed; the share of routed slots dropped at prefill and at
+    decode), and runs the check at a capacity that drops nothing,
+    ``capacity_factor = E / k``: a decode group holds the B new tokens
+    alone, so under drops decode and prefill differ by design.  Returns
+    one line per config, ``ok`` false if a check failed."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import prompts, serve
     from repro_torch.models import api
     from repro_torch.tree import flatten_with_path
 
     on_card = device.type == "cuda"
     B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
     lines = []
-    for arch, depth in DENSE_CONFIGS:
+    for arch, depth in configs:
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
@@ -1317,7 +1515,7 @@ def dense_configs_phase(sizes: Sizes, device, fused_engine, sync,
         leaves = flatten_with_path(params)
         nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
         windows = model._windows()
-        line = {"phase": "dense_configs", "card": card, "arch": cfg.name,
+        line = {"phase": phase, "card": card, "arch": cfg.name,
                 "layers": cfg.n_layers, "full_layers": full_layers,
                 "depth_cut": None if cfg.n_layers == full_layers
                 else f"{full_layers} -> {cfg.n_layers} layers",
@@ -1327,77 +1525,70 @@ def dense_configs_phase(sizes: Sizes, device, fused_engine, sync,
                 "layers_past_window": sum(0 < w < P + n for w in windows),
                 "params": cfg.param_count(),
                 "stored_params": sum(t.numel() for _, t in leaves),
-                "stored_bytes": nbytes, "init_seconds": init_s,
+                "stored_bytes": nbytes, "leaves": len(leaves),
+                "init_seconds": init_s,
                 "init_peak_bytes": torch.cuda.max_memory_allocated()
                 if on_card else None}
+        if cfg.n_experts:
+            line.update(active_params=cfg.active_param_count(),
+                        experts=cfg.n_experts,
+                        experts_per_token=cfg.experts_per_token,
+                        shared_experts=cfg.n_shared_experts,
+                        moe_group_size=cfg.moe_group_size,
+                        capacity_factor=cfg.capacity_factor,
+                        check_capacity_factor=cfg.n_experts
+                        / cfg.experts_per_token)
+        if cfg.use_mla:
+            line.update(mla={"kv_lora_rank": cfg.kv_lora_rank,
+                             "q_lora_rank": cfg.q_lora_rank,
+                             "qk_head_dim": cfg.qk_nope_head_dim
+                             + cfg.qk_rope_head_dim,
+                             "v_head_dim": cfg.v_head_dim})
+        if cfg.n_patches:
+            line["patches"] = cfg.n_patches
         del leaves
         checks = {}
-        if arch == DENSE_CONFIGS[0][0]:
-            mgr = SEARSCheckpointManager(engine=fused_engine)
-            reset_kernels()
-            before = LAUNCHES.snapshot()
-            t0 = time.perf_counter()
-            saved = mgr.save(1, params)
-            save_s = time.perf_counter() - t0
-            save_launches = LAUNCHES.delta(before)
-            save_kernels = dict(KERNELS)
-            for cluster in mgr.store.clusters:
-                cluster.kill_nodes(list(KILLED_NODES))
-            reset_kernels()
-            before = LAUNCHES.snapshot()
-            t0 = time.perf_counter()
-            restored = mgr.restore(params)
-            sync()
-            restore_s = time.perf_counter() - t0
-            restore_launches = LAUNCHES.delta(before)
-            restore_kernels = dict(KERNELS)
-            differs = ["/".join(path) for (path, a), (_, b) in zip(
-                flatten_with_path(restored), flatten_with_path(params))
-                if a.dtype != b.dtype or a.device != b.device
-                or not torch.equal(a, b)]
-            # serve from the restored copy; free the store's pieces now,
-            # not in a collection inside the serve timing
-            params = restored
-            del restored, mgr
-            gc.collect()
-            line.update(
-                save_seconds=save_s, save_bytes=saved["bytes"],
-                save_mib_per_s=saved["bytes"] / 2**20 / save_s,
-                save_launches=dataclasses.asdict(save_launches),
-                save_kernels=save_kernels,
-                killed_nodes_per_cluster=list(KILLED_NODES),
-                restore_seconds=restore_s,
-                restore_mib_per_s=saved["bytes"] / 2**20 / restore_s,
-                restore_launches=dataclasses.asdict(restore_launches),
-                restore_kernels=restore_kernels, restore_differs=differs)
-            checks["saved_all_bytes"] = saved["bytes"] == nbytes
-            checks["restore_identical"] = not differs
-            if on_card:
-                checks["save_launched_k2_k5"] = min(
-                    save_kernels[k] for k in ("gear_fire", "fused_ingest")) > 0
-                checks["restore_decoded_on_k1"] = \
-                    restore_kernels["gf_matmul"] > 0
+        if arch == configs[0][0]:
+            params, fields, ckpt_checks = checkpoint_round_trip(
+                params, fused_engine, sync, on_card)
+            line.update(fields)
+            checks.update(ckpt_checks)
         cache_tol, logit_tol = SERVE_GATES.get(
             arch, (SERVE_CACHE_TOL, SERVE_LOGIT_TOL))
-        serve_checks, times, first = [], [], None
+        check_model = model
+        if cfg.n_experts:
+            check_model = api.get_model(dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token))
+        serve_checks, times, drops, first = [], [], [], None
         with torch.no_grad():
             for seed in SERVE_SEEDS:
-                tokens = torch.from_numpy(np.random.default_rng(
-                    seed).integers(0, cfg.vocab_size, size=(B, P))).to(device)
-                r = decode_vs_prefill(model, params, tokens, n, device, sync,
-                                      cache_tol, logit_tol)
+                tokens, patches = prompts(cfg, B, P, seed, device)
+                if cfg.n_experts:  # timed at the published capacity
+                    model.moe_log = []
+                    try:
+                        res = serve(model, params, tokens, n, device)
+                        drops.append(drop_shares(model.moe_log,
+                                                 cfg.n_layers))
+                    finally:
+                        model.moe_log = None
+                r = decode_vs_prefill(check_model, params, tokens, n, device,
+                                      sync, cache_tol, logit_tol, patches)
+                if not cfg.n_experts:
+                    res = r["res"]
                 r["check"]["seed"] = seed
                 serve_checks.append(r["check"])
-                times.append((r["res"]["prefill_s"], r["res"]["decode_s"]))
+                times.append((res["prefill_s"], res["decode_s"]))
                 if first is None:
-                    first = r["res"]["tokens"]
-                del r
+                    first = res["tokens"]
+                del r, res
         prefill_s = statistics.median(t[0] for t in times)
         decode_s = statistics.median(t[1] for t in times)
         checks["tokens_in_vocab"] = bool(
             first.shape == (B, n)
             and ((first >= 0) & (first < cfg.vocab_size)).all())
         checks["decode_vs_prefill"] = all(c["ok"] for c in serve_checks)
+        if drops:
+            line["dropped_share"] = drops
         line.update(
             batch=B, prompt_len=P, tokens=n,
             prefill_seconds=[t[0] for t in times],
@@ -1411,11 +1602,25 @@ def dense_configs_phase(sizes: Sizes, device, fused_engine, sync,
             first_tokens=first[:, :8].tolist(), checks=checks,
             ok=all(checks.values()))
         lines.append(line)
-        del model, params, first
+        del model, check_model, params, first
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     return lines
+
+
+def dense_configs_phase(sizes: Sizes, device, fused_engine, sync,
+                        card: str = "") -> list[dict]:
+    """``configs_phase`` over ``DENSE_CONFIGS``."""
+    return configs_phase("dense_configs", DENSE_CONFIGS, sizes, device,
+                         fused_engine, sync, card)
+
+
+def moe_mla_configs_phase(sizes: Sizes, device, fused_engine, sync,
+                          card: str = "") -> list[dict]:
+    """``configs_phase`` over ``MOE_MLA_CONFIGS``."""
+    return configs_phase("moe_mla_configs", MOE_MLA_CONFIGS, sizes, device,
+                         fused_engine, sync, card)
 
 
 def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -1818,14 +2023,26 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
     if not train_line["ok"]:
         raise AssertionError(f"train: checks failed: "
                              f"{train_line['checks']}")
-    dense_lines = dense_configs_phase(sizes, device, fused_engine, sync,
-                                      card)
-    for line in dense_lines:
-        emit(line)
-    bad = [(line["arch"], line["checks"]) for line in dense_lines
-           if not line["ok"]]
-    if bad:
-        raise AssertionError(f"dense_configs: checks failed: {bad}")
+    config_lines = []
+    for phase in (dense_configs_phase, moe_mla_configs_phase):
+        lines = phase(sizes, device, fused_engine, sync, card)
+        for line in lines:
+            emit(line)
+        bad = [(line["arch"], line["checks"]) for line in lines
+               if not line["ok"]]
+        if bad:
+            raise AssertionError(f"{lines[0]['phase']}: checks failed: "
+                                 f"{bad}")
+        config_lines += lines
+    # each kernel's launches in the model phases' checkpoints
+    ckpts = [("train", train_line)] + [
+        (line["arch"], line) for line in config_lines if "save_kernels"
+        in line]
+    for e in kern + flash_rows:
+        e["checkpoint_launches"] = {
+            name: {"save": line["save_kernels"].get(e["name"], 0),
+                   "restore": line["restore_kernels"].get(e["name"], 0)}
+            for name, line in ckpts}
     return kern + flash_rows
 
 
@@ -1862,7 +2079,8 @@ def main(argv=None) -> int:
         "staged_device_ms_by_shape", "longest_chain_rounds_by_shape",
         "longest_chain_rounds", "device_ms_all_8k",
         "device_ms_one_8k", "tflop_per_s",
-        "share_of_bound", "fp32_ms", "ptxas", "tol") if k in e}
+        "share_of_bound", "fp32_ms", "ptxas", "tol",
+        "checkpoint_launches") if k in e}
         for e in kern]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

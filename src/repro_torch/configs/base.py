@@ -116,6 +116,12 @@ class ModelConfig:
         from repro_torch.models import api
         return api.param_count(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token touches (MoE: the top-k of the routed
+        experts), from the port's own parameter shapes."""
+        from repro_torch.models import api
+        return api.active_param_count(self)
+
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU smoke tests."""
@@ -186,7 +192,8 @@ ARCH_IDS = [
 
 
 # ids whose configuration (and model family) the port holds so far
-PORTED = ("llama32_1b", "gemma3_1b", "internlm2_20b", "deepseek_coder_33b")
+PORTED = ("llama32_1b", "gemma3_1b", "internlm2_20b", "deepseek_coder_33b",
+          "granite_moe_1b", "deepseek_v2_236b", "phi3_vision_4b")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -195,8 +202,8 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md, Queue 1: MoE / MLA / "
-            f"Mamba layers and their configs, other families); the port "
+            f"{arch} is not ported yet (ROADMAP.md, Queue 1: the Mamba "
+            f"layers and the other model families); the port "
             f"holds {list(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG

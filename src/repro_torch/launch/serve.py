@@ -7,6 +7,9 @@ On the CPU, at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama32_1b \
       --tiny --device cpu
 
+A VLM config (``phi3_vision_4b``) prefills seeded image patch embeddings
+before the prompt's tokens.
+
 Port of the JAX reference's ``repro/launch/serve.py``.  The weights come
 from a seeded ``torch.Generator``; ``--ckpt`` first saves them through
 ``SEARSCheckpointManager`` (engine ``"fused"`` on the card, ``"numpy"``
@@ -26,15 +29,36 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(model, params, tokens, n_tokens: int, device) -> dict:
-    """Prefill ``tokens`` (B, P), then ``n_tokens - 1`` greedy decode
-    steps; returns the generated tokens (B, n_tokens), the last step's
-    logits and the times."""
+def prompts(cfg, B: int, P: int, seed: int, device):
+    """(tokens (B, P), patches or None): the tokens of ``seed``'s numpy
+    generator and, for a config with ``n_patches``, image patch
+    embeddings (B, n_patches, d_model) drawn after them, N(0, 1) in bf16,
+    as ``api.make_batch`` draws a VLM batch."""
+    import numpy as np
     import torch
-    B, P = tokens.shape
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, P)))
+    patches = None
+    if cfg.n_patches:
+        patches = torch.from_numpy(rng.normal(
+            size=(B, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return tokens.to(device), patches
+
+
+def serve(model, params, tokens, n_tokens: int, device,
+          patches=None) -> dict:
+    """Prefill ``tokens`` (B, P) -- after ``patches`` (B, n_patches,
+    d_model), where given, which take the first cache slots -- then
+    ``n_tokens - 1`` greedy decode steps; returns the generated tokens
+    (B, n_tokens), the last step's logits and cache, and the times."""
+    import torch
+    batch = {"tokens": tokens}
+    if patches is not None:
+        batch["patches"] = patches
+    P = tokens.shape[1] + (0 if patches is None else patches.shape[1])
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  cache_len=P + n_tokens)
+    logits, cache = model.prefill(params, batch, cache_len=P + n_tokens)
     tok = torch.argmax(logits, -1)[:, None]
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -63,7 +87,6 @@ def main(argv=None) -> None:
                          "and serve the restored copy")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config
@@ -88,13 +111,13 @@ def main(argv=None) -> None:
         params = mgr.restore(params)
         print(f"checkpoint: {saved['bytes']} bytes saved in {t1 - t0:.2f}s,"
               f" restored in {time.perf_counter() - t1:.2f}s")
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(args.batch, args.prompt_len))).to(device)
+    tokens, patches = prompts(cfg, args.batch, args.prompt_len, 0, device)
     with torch.no_grad():
-        res = serve(model, params, tokens, args.tokens, device)
+        res = serve(model, params, tokens, args.tokens, device, patches)
     steps = args.tokens - 1
-    print(f"{cfg.name} on {device}: prefill {args.batch}x{args.prompt_len} "
+    seen = f" after {cfg.n_patches} patches" if cfg.n_patches else ""
+    print(f"{cfg.name} on {device}: prefill {args.batch}x{args.prompt_len}"
+          f"{seen} "
           f"in {res['prefill_s']:.2f}s; {steps} decode steps x "
           f"{args.batch} seqs in {res['decode_s']:.2f}s "
           f"({steps * args.batch / max(res['decode_s'], 1e-9):.1f} tok/s)")

@@ -3,7 +3,8 @@ batches, parameter counts, and the carry of the reference's
 weights and train state into the port.
 
 Port of the JAX reference's ``repro/models/api.py`` for the families the
-port runs (dense, and VLM backbones without patches).
+port runs: dense, MoE (with MLA) and VLM backbones fed precomputed
+patch embeddings.
 """
 
 from __future__ import annotations
@@ -25,35 +26,68 @@ def get_model(cfg: ModelConfig, remat: bool = True,
     if cfg.family in ("ssm", "hybrid", "encdec"):
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet (ROADMAP.md, Queue "
-            f"1: MoE / MLA / Mamba layers and their configs, other "
-            f"families)")
-    # dense | vlm (MoE raises in TransformerLM)
+            f"1 E: the Mamba layers and the other model families)")
+    # dense | moe | vlm
     return TransformerLM(cfg, remat=remat, remat_policy=remat_policy)
 
 
 # ---------------------------------------------------------------------------
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, rng: np.random.Generator,
                batch_override: int | None = None, device="cuda") -> dict:
-    """Random train batch of a dense model, ``{"tokens": (B, S) int32}``,
-    drawn from ``rng`` as the reference draws it, so one seed gives both
-    packages the same tokens.  Decode shapes and the inputs of other
-    families (patches, frames) come with their ports."""
-    if shape.kind == "decode" or cfg.family != "dense":
+    """Random train batch, ``{"tokens": (B, S) int32}`` and for a VLM
+    ``"patches"`` (B, n_patches, d_model) bf16, drawn from ``rng`` as the
+    reference draws them (the patches after the tokens, rounded to bf16
+    through fp32 as the reference's ``jnp.asarray`` rounds them), so one
+    seed gives both packages the same bits.  Decode shapes and the
+    frames of the encoder-decoder family come with their ports (ROADMAP.md,
+    Queue 1 E and F)."""
+    if shape.kind == "decode" or cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"make_batch: only train batches of dense models are ported "
-            f"(got {shape.kind!r}, {cfg.family!r})")
+            f"make_batch: only train batches of the dense, MoE and VLM "
+            f"families are ported (got {shape.kind!r}, {cfg.family!r})")
     B = batch_override or shape.global_batch
     arr = rng.integers(0, cfg.vocab_size, size=(B, shape.seq_len))
-    return {"tokens": torch.from_numpy(arr.astype(np.int32)).to(device)}
+    out = {"tokens": torch.from_numpy(arr.astype(np.int32)).to(device)}
+    if cfg.family == "vlm":
+        arr = rng.normal(size=(B, cfg.n_patches, cfg.d_model))
+        out["patches"] = torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return out
+
+
+def _unpadded(cfg: ModelConfig) -> ModelConfig:
+    """The config without TP head padding."""
+    if cfg.n_heads_padded or cfg.n_kv_heads_padded:
+        return dataclasses.replace(cfg, n_heads_padded=0,
+                                   n_kv_heads_padded=0)
+    return cfg
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Real (non-pad) parameter count -- TP head padding excluded."""
-    if cfg.n_heads_padded or cfg.n_kv_heads_padded:
-        cfg = dataclasses.replace(cfg, n_heads_padded=0,
-                                  n_kv_heads_padded=0)
-    shapes = get_model(cfg).param_shapes()
+    shapes = get_model(_unpadded(cfg)).param_shapes()
     return int(sum(np.prod(s.shape) for _, s in flatten_with_path(shapes)))
+
+
+def _routed_expert_params(cfg: ModelConfig, shapes) -> int:
+    """Parameters inside the routed experts' weights: the (E, D, F)-family
+    leaves (stacked over layers); a shared expert's MLP has no E axis."""
+    return int(sum(np.prod(s.shape) for path, s in flatten_with_path(shapes)
+                   if path[-1] in ("wg", "wu", "wd")
+                   and s.shape[-3:-2] == (cfg.n_experts,)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters a token touches (MoE: the top-k of the routed experts),
+    TP head padding excluded."""
+    cfg = _unpadded(cfg)
+    shapes = get_model(cfg).param_shapes()
+    total = int(sum(np.prod(s.shape) for _, s in flatten_with_path(shapes)))
+    if not cfg.n_experts:
+        return total
+    routed = _routed_expert_params(cfg, shapes)
+    return int(total - routed
+               + routed * (cfg.experts_per_token / cfg.n_experts))
 
 
 def _tensor(arr, device) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""Neural-net building blocks of the dense transformer, in PyTorch.
+"""Neural-net building blocks of the transformer family, in PyTorch.
 
-Port of the dense part of the JAX reference's ``repro/models/layers.py``:
-RMSNorm, LayerNorm, RoPE, GQA attention (a direct einsum path, and a
-blockwise flash-style path for long sequences), SwiGLU/GELU MLPs and the
-GQA attention layer.  Pure functions over explicit parameter dicts, in
-the reference's layouts and precision policy: parameters and activations
-in bf16; softmax, norms and RoPE in fp32.  MoE, MLA and Mamba wait for
-their port (ROADMAP.md, Queue 1).
+Port of the JAX reference's ``repro/models/layers.py`` but its Mamba
+block: RMSNorm, LayerNorm, RoPE, GQA attention (a direct einsum path,
+and a blockwise flash-style path for long sequences), SwiGLU/GELU MLPs,
+the GQA attention layer, MLA latent attention (the naive train/prefill
+path and the absorbed decode path) and the capacity-based top-k MoE FFN.
+Pure functions over explicit parameter dicts, in the reference's layouts
+and precision policy: parameters and activations in bf16; softmax,
+norms, RoPE and the router in fp32.  Mamba waits for its port
+(ROADMAP.md, Queue 1 E).
 
 The models call ``attention`` here, as the reference's models do; the
 hand-written flash kernel is ``repro_torch.kernels.ops.flash_attention``,
@@ -16,7 +18,8 @@ which is held against this function.
 from __future__ import annotations
 
 import functools
-from typing import Any
+import math
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -278,3 +281,200 @@ def gqa_attend(x, p, cfg, *, k, v, q_pos, kv_pos, window=0, causal=True):
     wo = p["wo"]
     out = out.to(torch.promote_types(out.dtype, wo.dtype))
     return torch.einsum("bshk,hkd->bsd", out, wo.to(out.dtype))
+
+
+# --------------------------------------------------------------- einsum ----
+def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` on the promoted dtype of its operands, as
+    ``jnp.einsum`` promotes (a bf16 cache against fp32 weights)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(spec, a.to(dt), b.to(dt))
+
+
+# ------------------------------------------------------------------ MoE ----
+def moe_shapes(cfg) -> dict:
+    """The MoE FFN's leaves: the fp32 router, the routed experts'
+    stacked SwiGLU weights and, with shared experts, one MLP of
+    ``n_shared_experts * moe_d_ff``."""
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    s = {"router": (D, E), "wg": (E, D, F), "wu": (E, D, F),
+         "wd": (E, F, D)}
+    if cfg.n_shared_experts:
+        s["shared"] = mlp_shapes(D, cfg.n_shared_experts * F)
+    return s
+
+
+def moe_init(gen, cfg, dtype=torch.bfloat16) -> Params:
+    """The router in fp32 and the experts in ``dtype``, all N(0, 0.02)."""
+    def make(name, shape):
+        if isinstance(shape, dict):
+            return {n: make(n, s) for n, s in shape.items()}
+        return dense_init(gen, shape, dtype=torch.float32
+                          if name == "router" else dtype)
+    return {name: make(name, shape)
+            for name, shape in moe_shapes(cfg).items()}
+
+
+class Routing(NamedTuple):
+    """A grouped top-k routing: ``idx`` the experts (G, M, K), ``gates``
+    their fp32 softmax weights, ``pos`` each slot's place in its
+    expert's queue, ``keep`` whether that place is under the capacity
+    ``C``, and ``margin`` (G, M) the k-th largest logit less the next
+    (inf where k = E): how near the top-k set is to a tie."""
+    idx: torch.Tensor
+    gates: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    margin: torch.Tensor
+    C: int
+
+
+def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg) -> Routing:
+    """The reference's routing of groups ``xg`` (G, M, D), exactly.
+
+    The top k come from a stable descending sort, so equal logits go to
+    the lower expert first, as ``jax.lax.top_k`` takes them (a zero pad
+    row ties all E and goes to experts 0..K-1).  Queue places are
+    slot-major: slot j of every token ranks before slot j+1 of any
+    token, and within a slot the earlier token first.
+    """
+    E, K = cfg.n_experts, cfg.experts_per_token
+    G, M, _ = xg.shape
+    logits = xg.float() @ router.float()  # (G, M, E)
+    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    margin = top[..., K - 1] - top[..., K] if K < E \
+        else torch.full((G, M), math.inf, device=xg.device)
+    top, idx = top[..., :K], idx[..., :K]
+    gates = torch.softmax(top, dim=-1)
+    C = max(1, math.ceil(M * K * cfg.capacity_factor / E))
+    slots = F.one_hot(idx.transpose(1, 2).reshape(G, K * M), E)  # slot-major
+    before = torch.cumsum(slots, dim=1) - slots  # earlier slots per expert
+    pos = before.gather(-1, idx.transpose(1, 2).reshape(G, K * M, 1))
+    pos = pos.reshape(G, K, M).transpose(1, 2)  # (G, M, K)
+    return Routing(idx, gates, pos, pos < C, margin, C)
+
+
+def moe(x: torch.Tensor, p: Params, cfg, log: list | None = None
+        ) -> torch.Tensor:
+    """Top-k MoE with the reference's capacity-based routing.
+
+    x: (B, S, D), in groups of ``moe_group_size`` tokens (the last padded
+    with zero rows).  Where the reference multiplies by (G, M, E, C)
+    one-hot dispatch and combine tensors, this gathers each kept (token,
+    slot) into its expert's queue place, (G, E, C, D), and gathers the
+    expert outputs back, weighted by the gates rounded to bf16 as the
+    reference's combine is: the same function, without the one-hots.
+    ``log``, when given, gets the routing of the real tokens: ``(idx,
+    keep, margin)``, (B, S, K), (B, S, K) and (B, S) tensors.
+    """
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    N = B * S
+    M = min(cfg.moe_group_size, N)
+    xt = F.pad(x.reshape(N, D), (0, 0, 0, (-N) % M))
+    G = xt.shape[0] // M
+    xg = xt.reshape(G, M, D)
+    r = moe_route(xg, p["router"], cfg)
+    if log is not None:
+        log.append((r.idx.reshape(-1, K)[:N].reshape(B, S, K),
+                    r.keep.reshape(-1, K)[:N].reshape(B, S, K),
+                    r.margin.reshape(-1)[:N].reshape(B, S)))
+    C = r.C
+    # each kept slot's queue place, E * C (a dump row) for a dropped one
+    dest = torch.where(r.keep, r.idx * C + r.pos, E * C).reshape(G, M * K)
+    token = torch.arange(M, device=x.device).repeat_interleave(K)
+    src = torch.full((G, E * C + 1), M, dtype=torch.long, device=x.device)
+    src.scatter_(1, dest, token.expand(G, -1))  # place -> token, M if empty
+    xz = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
+    xe = torch.gather(xz, 1, src[:, :E * C, None].expand(-1, -1, D))
+    xe = xe.reshape(G, E, C, D)
+    h = F.silu(_einsum("gecd,edf->gecf", xe, p["wg"])) \
+        * _einsum("gecd,edf->gecf", xe, p["wu"])
+    ye = _einsum("gecf,efd->gecd", h, p["wd"])
+    yz = torch.cat([ye.reshape(G, E * C, D), ye.new_zeros(G, 1, D)], dim=1)
+    yk = torch.gather(yz, 1, dest[..., None].expand(-1, -1, D))
+    w = torch.where(r.keep, r.gates, 0.0).to(torch.bfloat16)
+    y = torch.einsum("gmk,gmkd->gmd", w.float(),
+                     yk.reshape(G, M, K, D).float()).to(ye.dtype)
+    y = y.reshape(-1, D)[:N].reshape(B, S, D)
+    if "shared" in p:
+        y = y + mlp(x, p["shared"])
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLA ------
+def mla_shapes(cfg) -> dict:
+    """MLA's leaves; ``kv_norm`` and ``q_norm`` are the fp32 norm
+    weights.  ``q_lora_rank`` 0 projects the queries with one ``wq``."""
+    D, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kvr, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    s = {"wdkv": (D, kvr), "kv_norm": (kvr,), "wuk": (kvr, H, dn),
+         "wuv": (kvr, H, dv), "wkr": (D, dr), "wo": (H, dv, D)}
+    if qr:
+        s.update(wdq=(D, qr), q_norm=(qr,), wuq=(qr, H, dn + dr))
+    else:
+        s["wq"] = (D, H, dn + dr)
+    return s
+
+
+MLA_NORMS = ("kv_norm", "q_norm")
+
+
+def mla_init(gen, cfg, dtype=torch.bfloat16) -> Params:
+    return {name: torch.zeros(shape, device=gen.device)
+            if name in MLA_NORMS else dense_init(gen, shape, dtype=dtype)
+            for name, shape in mla_shapes(cfg).items()}
+
+
+def mla_queries(x, p, cfg, positions):
+    """(q_nope, q_rope): the no-position and the rotated query parts."""
+    dn = cfg.qk_nope_head_dim
+    if "wdq" in p:
+        qc = rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+        q = _einsum("bsr,rhk->bshk", qc, p["wuq"])
+    else:
+        q = _einsum("bsd,dhk->bshk", x, p["wq"])
+    return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def mla_latent(x, p, cfg, positions):
+    """Per-token latent cache entries: (c_kv (B, S, kvr), k_rope (B, S,
+    dr))."""
+    c = rms_norm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
+    kr = rope((x @ p["wkr"])[:, :, None, :], positions, cfg.rope_theta)
+    return c, kr[:, :, 0, :]
+
+
+def mla_attend_naive(x, p, cfg, *, c, k_rope, q_pos, kv_pos):
+    """Train/prefill path: the latent expanded to per-head K/V, then
+    attention with q/k head dim dn + dr and v head dim dv."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = mla_queries(x, p, cfg, q_pos)
+    k_nope = _einsum("btr,rhk->bthk", c, p["wuk"])
+    v = _einsum("btr,rhk->bthk", c, p["wuv"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype).expand(
+        *k_nope.shape[:3], dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                    scale=1.0 / np.sqrt(dn + dr))
+    return _einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def mla_attend_absorbed(x, p, cfg, *, c, k_rope, q_pos, kv_pos):
+    """Decode path: the queries absorbed into the latent space, attending
+    to the compressed (kv_lora + rope) cache itself.  The reference's
+    dtypes: ``q_c`` in the activations' dtype, fp32 scores, the
+    probabilities rounded to the cache's dtype, ``ctx`` in it."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = mla_queries(x, p, cfg, q_pos)
+    q_c = _einsum("bshn,rhn->bshr", q_nope, p["wuk"])  # absorb W_uk
+    scores = (torch.einsum("bshr,btr->bhst", q_c.float(), c.float())
+              + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                             k_rope.float()))
+    scores = scores / np.sqrt(dn + dr)
+    mask = _mask(q_pos, kv_pos, 0, True)
+    scores = torch.where(mask, scores, NEG_INF)
+    ctx = _pv(torch.softmax(scores, dim=-1), c, "bhst,btr->bshr")
+    out = _einsum("bshr,rhk->bshk", ctx, p["wuv"])  # expand with W_uv
+    return _einsum("bshk,hkd->bsd", out, p["wo"])

@@ -1,16 +1,21 @@
-"""Decoder-only transformer LM: the dense family, in PyTorch.
+"""Decoder-only transformer LM: the dense, MoE, MLA and VLM-backbone
+families, in PyTorch.
 
-Port of the JAX reference's ``repro/models/transformer.py`` for dense
-models (and VLM backbones run without patches).  Parameters are a
-nested dict with the reference's leaf paths and stacked
-``(n_layers, ...)`` layer leaves (``layers/attn/wq`` and so on), so a
-checkpoint of either package restores in the other.  The reference's
+Port of the JAX reference's ``repro/models/transformer.py``.  Parameters
+are a nested dict with the reference's leaf paths and stacked
+``(n_layers, ...)`` layer leaves (``layers/attn/wq``,
+``layers/ffn/router`` and so on), so a checkpoint of either package
+restores in the other.  The attention is GQA or MLA (with its latent
+``c`` / ``kr`` cache, attended absorbed at decode) and the FFN an MLP or
+the top-k MoE, by the config.  ``patches`` (image embeddings at
+``d_model``) are prepended to the token embeddings, so positions, the
+cache and the loss's skipped prefix cover them.  The reference's
 ``lax.scan`` over layers is a Python loop over the layer index, and its
 ``jax.checkpoint`` of the scanned layer is a per-layer
 ``torch.utils.checkpoint`` (``remat``; ``remat_policy="dots"`` saves
 the matmul outputs without batch dims, as the reference's
-``dots_with_no_batch_dims_saveable``).  MLA, MoE and patch inputs raise
-``NotImplementedError`` until their port (ROADMAP.md, Queue 1).
+``dots_with_no_batch_dims_saveable``: the MoE's expert products, batched
+over the experts, are recomputed).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.losses import chunked_ce
-from repro_torch.tree import tree_map
+from repro_torch.tree import map_with_path, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,28 +49,24 @@ def _save_dots(_ctx, op, *args, **_kw):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: MoE / MLA / Mamba "
-        f"layers and their configs)")
-
-
 class TransformerLM(nn.Module):
     """Functional over an explicit parameter dict, as the reference is:
-    ``init`` makes the parameters, the other methods take them."""
+    ``init`` makes the parameters, the other methods take them.
+
+    ``moe_log``: None, or a list that every MoE layer appends its
+    routing of the real tokens to, ``(idx, keep, margin)``
+    (``layers.moe``).
+    """
 
     def __init__(self, cfg, remat: bool = True,
                  remat_policy: str | None = None) -> None:
         super().__init__()
-        if cfg.use_mla:
-            raise _not_ported("MLA attention (use_mla)")
-        if cfg.n_experts:
-            raise _not_ported("the MoE FFN (n_experts)")
         if remat_policy not in (None, "nothing", "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         self.cfg = cfg
         self.remat = remat
         self.remat_policy = remat_policy
+        self.moe_log: list | None = None
 
     # ------------------------------------------------------------- init ----
     def param_shapes(self) -> dict:
@@ -73,12 +74,17 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         nl, D = cfg.n_layers, cfg.d_model
         bf16, f32 = torch.bfloat16, torch.float32
+
+        def stack(shapes: dict, fp32=()) -> dict:
+            return {n: stack(s) if isinstance(s, dict) else
+                    Spec((nl,) + s, f32 if n in fp32 else bf16)
+                    for n, s in shapes.items()}
+        attn = stack(L.mla_shapes(cfg), L.MLA_NORMS) if cfg.use_mla \
+            else stack(L.gqa_shapes(cfg))
+        ffn = stack(L.moe_shapes(cfg), ("router",)) if cfg.n_experts \
+            else stack(L.mlp_shapes(D, cfg.d_ff, cfg.act))
         layer = {"ln1": Spec((nl, D), f32), "ln2": Spec((nl, D), f32),
-                 "attn": {n: Spec((nl,) + s, bf16)
-                          for n, s in L.gqa_shapes(cfg).items()},
-                 "ffn": {n: Spec((nl,) + s, bf16)
-                         for n, s in L.mlp_shapes(D, cfg.d_ff,
-                                                  cfg.act).items()}}
+                 "attn": attn, "ffn": ffn}
         shapes = {"embed": Spec((cfg.vocab_size, D), bf16), "layers": layer,
                   "final_norm": Spec((D,), f32)}
         if not cfg.tie_embeddings:
@@ -86,14 +92,15 @@ class TransformerLM(nn.Module):
         return shapes
 
     def init(self, gen: torch.Generator) -> dict:
-        """Parameters on the generator's device: bf16 weights N(0, 0.02),
-        fp32 norm weights at 0 (the norms scale by ``1 + w``)."""
-        def make(spec: Spec):
-            if spec.dtype == torch.float32:
+        """Parameters on the generator's device: bf16 weights and the fp32
+        MoE router N(0, 0.02), the fp32 norm weights at 0 (the norms scale
+        by ``1 + w``)."""
+        def make(path, spec: Spec):
+            if spec.dtype == torch.float32 and path[-1] != "router":
                 return torch.zeros(spec.shape, dtype=spec.dtype,
                                    device=gen.device)
             return L.dense_init(gen, spec.shape, dtype=spec.dtype)
-        params = tree_map(make, self.param_shapes())
+        params = map_with_path(make, self.param_shapes())
         layers = params["layers"]
         layers["attn"] = L.zero_pad_slots(layers["attn"], self.cfg)
         return params
@@ -115,9 +122,10 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ embed ----
     def _embed(self, params, tokens, patches=None):
+        x = params["embed"][tokens]
         if patches is not None:
-            raise _not_ported("the multimodal frontend (patches)")
-        return params["embed"][tokens]
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return x
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -126,17 +134,28 @@ class TransformerLM(nn.Module):
 
     # ---------------------------------------------------------- forward ----
     def _ffn(self, x, p):
-        h2 = L.rms_norm(x, p["ln2"], self.cfg.norm_eps)
-        return x + L.mlp(h2, p["ffn"], self.cfg.act)
+        cfg = self.cfg
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if cfg.n_experts:
+            return x + L.moe(h2, p["ffn"], cfg, self.moe_log)
+        return x + L.mlp(h2, p["ffn"], cfg.act)
+
+    def _attend(self, h, p, window: int, pos):
+        """The layer's attention over the full sequence -> (its output,
+        the cache entries: MLA's (c, kr) or GQA's (k, v))."""
+        cfg = self.cfg
+        if cfg.use_mla:
+            c, kr = L.mla_latent(h, p["attn"], cfg, pos)
+            return L.mla_attend_naive(h, p["attn"], cfg, c=c, k_rope=kr,
+                                      q_pos=pos, kv_pos=pos), (c, kr)
+        k, v = L.gqa_project_kv(h, p["attn"], cfg, pos)
+        return L.gqa_attend(h, p["attn"], cfg, k=k, v=v, q_pos=pos,
+                            kv_pos=pos, window=window), (k, v)
 
     def _block(self, x, p, window: int, pos):
         """One decoder layer over the full sequence."""
-        cfg = self.cfg
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        k, v = L.gqa_project_kv(h, p["attn"], cfg, pos)
-        x = x + L.gqa_attend(h, p["attn"], cfg, k=k, v=v, q_pos=pos,
-                             kv_pos=pos, window=window)
-        return self._ffn(x, p)
+        h = L.rms_norm(x, p["ln1"], self.cfg.norm_eps)
+        return self._ffn(x + self._attend(h, p, window, pos)[0], p)
 
     def _backbone(self, params, batch):
         """Full-sequence causal pass -> final hidden states (B, S, D).
@@ -176,13 +195,23 @@ class TransformerLM(nn.Module):
                           self.cfg.norm_eps, skip_prefix=P)
 
     # ------------------------------------------------------------ cache ----
+    def _cache_names(self) -> tuple[str, str]:
+        return ("c", "kr") if self.cfg.use_mla else ("k", "v")
+
     def init_cache(self, B: int, T: int, device=None) -> dict:
-        """Zeroed bf16 k/v cache, as the reference's: whatever the
-        weights' dtype, the cached k/v are rounded to bf16."""
+        """Zeroed bf16 cache, as the reference's: whatever the weights'
+        dtype, the cached entries are rounded to bf16.  GQA caches k/v
+        (L, B, T, KV, hd); MLA its latent ``c`` (L, B, T, kv_lora_rank)
+        and rotated key part ``kr`` (L, B, T, qk_rope_head_dim)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, B, T, cfg.kv_store, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+        nl = cfg.n_layers
+        if cfg.use_mla:
+            shapes = ((nl, B, T, cfg.kv_lora_rank),
+                      (nl, B, T, cfg.qk_rope_head_dim))
+        else:
+            shapes = ((nl, B, T, cfg.kv_store, cfg.head_dim),) * 2
+        return {name: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+                for name, shape in zip(self._cache_names(), shapes)}
 
     def prefill(self, params, batch, cache_len=None):
         """Process the prompt; returns (last-position logits, cache)."""
@@ -192,39 +221,47 @@ class TransformerLM(nn.Module):
         T = max(cache_len or S, S)
         pos = torch.arange(S, device=x.device)
         cache = self.init_cache(B, T, device=x.device)
+        names = self._cache_names()
         for i, window in enumerate(self._windows()):
             p = self._layer(params, i)
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            k, v = L.gqa_project_kv(h, p["attn"], cfg, pos)
-            x = x + L.gqa_attend(h, p["attn"], cfg, k=k, v=v, q_pos=pos,
-                                 kv_pos=pos, window=window)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-            x = self._ffn(x, p)
+            att, entries = self._attend(h, p, window, pos)
+            for name, entry in zip(names, entries):
+                cache[name][i, :, :S] = entry
+            x = self._ffn(x + att, p)
         return self._logits(params, x[:, -1:, :])[:, 0], cache
 
     def decode_step(self, params, cache, token, pos: int):
         """One decode step. token: (B, 1) integers; pos: the cache slot
         this token occupies.  Returns (logits (B, V), cache).
 
-        The new k/v are written into ``cache`` in place at ``pos`` (the
-        reference returns a new cache through ``dynamic_update_slice``);
-        the returned cache is the same dict.
+        The new cache entries (GQA's k/v, MLA's c/kr) are written into
+        ``cache`` in place at ``pos`` (the reference returns a new cache
+        through ``dynamic_update_slice``); the returned cache is the same
+        dict.  MLA attends absorbed, against the latent cache itself.
         """
         cfg = self.cfg
         x = self._embed(params, token)
-        T = cache["k"].shape[2]
+        names = self._cache_names()
+        T = cache[names[0]].shape[2]
         pos = int(pos)
         q_pos = torch.tensor([pos], device=x.device)
         kv_pos = torch.arange(T, device=x.device)
         for i, window in enumerate(self._windows()):
             p = self._layer(params, i)
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            k_new, v_new = L.gqa_project_kv(h, p["attn"], cfg, q_pos)
-            cache["k"][i, :, pos] = k_new[:, 0]
-            cache["v"][i, :, pos] = v_new[:, 0]
-            x = x + L.gqa_attend(h, p["attn"], cfg, k=cache["k"][i],
-                                 v=cache["v"][i], q_pos=q_pos, kv_pos=kv_pos,
-                                 window=window)
-            x = self._ffn(x, p)
+            if cfg.use_mla:
+                entries = L.mla_latent(h, p["attn"], cfg, q_pos)
+            else:
+                entries = L.gqa_project_kv(h, p["attn"], cfg, q_pos)
+            for name, entry in zip(names, entries):
+                cache[name][i, :, pos] = entry[:, 0]
+            a, b = cache[names[0]][i], cache[names[1]][i]
+            if cfg.use_mla:
+                att = L.mla_attend_absorbed(h, p["attn"], cfg, c=a, k_rope=b,
+                                            q_pos=q_pos, kv_pos=kv_pos)
+            else:
+                att = L.gqa_attend(h, p["attn"], cfg, k=a, v=b, q_pos=q_pos,
+                                   kv_pos=kv_pos, window=window)
+            x = self._ffn(x + att, p)
         return self._logits(params, x)[:, 0], cache
