@@ -102,19 +102,19 @@ through the entry points a user calls, on the card:
    256, window 512) and internlm2-20b's (48:8 heads, head dim 128).
 
 14. ``train``: llama3.2-1b at full width, cut to 4 of its 16 layers
-   (``TRAIN_LAYERS``), trained through ``Trainer`` with int8 moments at B = 8, S = 512 on
-   ``SyntheticCorpus``, random weights from ``torch.Generator`` seed 0:
-   steps 1-2, the save of the whole train state at step 2 through the
-   trainer's own manager (``engine="kernel"``: K2, K4 and K1 must
-   launch), then steps 3-8, timed, under
-   ``torch.use_deterministic_algorithms``.  Then a crash: a new
-   ``Trainer`` on the same manager, nodes 0, 2, 4, 6, 8 of every cluster
-   dead, ``restore_or_init`` (K1 must decode); the restored state must
-   equal the step-2 state and step 3 run again the uninterrupted step 3,
-   bit for bit.  The line gives the step times and tokens/s, the
-   trainer's peak device memory (steps 1-2 and the save, read before the
-   checks keep the step-2 and step-3 states), the losses, the save's
-   and the restore's seconds, bytes and launches.
+   (``TRAIN_LAYERS``), trained through ``Trainer`` with int8 moments at B =
+   8, S = 512 on ``SyntheticCorpus``, random weights from
+   ``torch.Generator`` seed 0: steps 1-2, the save of the whole train state
+   at step 2 through the trainer's own manager (``engine="kernel"``: K2, K4
+   and K1 must launch), then steps 3-8, timed, under
+   ``torch.use_deterministic_algorithms``.  Then a crash: a new ``Trainer``
+   on the same manager, nodes 0, 2, 4, 6, 8 of every cluster dead,
+   ``restore_or_init`` (K1 must decode); the restored state must equal the
+   step-2 state and step 3 run again the uninterrupted step 3, bit for
+   bit.  The line gives the step times and tokens/s, the trainer's peak
+   device memory (steps 1-2 and the save, read before the checks keep the
+   step-2 and step-3 states), the losses, the save's and the restore's
+   seconds, bytes and launches.
 15. ``dense_configs``: after ``train``, with the card freed, three more
    dense models at full width (``DENSE_CONFIGS``), random bf16 weights
    made on the card from ``torch.Generator`` seed 0: gemma3-1b (26
@@ -147,17 +147,36 @@ through the entry points a user calls, on the card:
    (1.25; timed, with the share of routed slots dropped at prefill and
    at decode) and runs the serve check at ``capacity_factor = E / k``,
    which drops nothing: a decode group is the 4 new tokens alone, so
-   under drops decode and prefill differ by design.  The check counts
-   the (token, layer) pairs whose top-k set differs between decode and
-   the extended prefill, with their router margins, and reads the cache
-   and logits again over the slots no flip reached, which must stay
-   under the base gates (a flip moves its token's later entries:
-   ``SERVE_GATES`` gives both MoE configs their own gates by the rule
-   in ``PERF.md``).  One line per
+   under drops decode and prefill differ by design.  The extended
+   prefill routes each token as the serve did (``replayed_routing``: a
+   near tie of the router that the two paths round apart would move the
+   token's later entries), and the check counts the (token, MoE layer)
+   pairs whose top-k set the prefill would have chosen otherwise, with
+   their router margins.  One line per
    config, as ``dense_configs`` prints them, plus the active parameters
-   and the routing readings.  The ``kernels`` line then gives, for each
-   kernel, its launches in the checkpoints of ``train``, gemma3-1b and
-   granite-moe-1b (``checkpoint_launches``).
+   and the routing readings.
+17. ``ssm_encdec_configs``: after ``moe_mla_configs``, on a freed card, the
+   same for the SSM, hybrid and encoder-decoder configs
+   (``SSM_ENCDEC_CONFIGS``): whisper-tiny (4 encoder and 4 decoder layers,
+   6 heads stored as 16; 1024 seeded frame embeddings encoded before each
+   prompt; its weights through the ``fused`` store, K2 and K5 must launch,
+   and restored with nodes 0, 2, 4, 6, 8 of every cluster dead, K1 must
+   decode, bit for bit), falcon-mamba-7b (all 64 Mamba-1 layers) and
+   jamba-1.5-large cut to one period of its pattern, 8 of 72 layers (one
+   attention layer, seven Mamba mixers, four MLPs and four 16-expert top-2
+   MoE layers), whose routed experts are drawn once a group and shared by
+   its four MoE layers (``SHARED_EXPERT_DRAW``: a stride-0 view, every
+   shape and FLOP kept).  The serve check compares the SSM state caches
+   (``h``, ``conv``) whole, per layer, after the same P+n-1 tokens, with a
+   control of layer 0's ``h`` from a prefill one token shorter; the cross
+   caches (``ek``, ``ev``) must be equal bit for bit.  jamba serves timed at
+   capacity 1.25 and is checked at E / k, as the MoE configs are.  One line
+   per config, as ``moe_mla_configs`` prints them, plus the SSM widths
+   (``d_inner``, ``ssm_state``, ``dt_rank``), the cache's bytes by kind,
+   whisper's encoder layers and frames, and jamba's ``depth_cut`` and
+   ``shared_expert_draw``.  The ``kernels`` line then gives, for each
+   kernel, its launches in the checkpoints of ``train``, gemma3-1b,
+   granite-moe-1b and whisper-tiny (``checkpoint_launches``).
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
@@ -173,7 +192,9 @@ on any checkout's kernels, to compare two commits in one call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -246,18 +267,16 @@ SERVE_LOGIT_TOL = 5e-2
 # digit, kept only while its shifted control reads above it.
 # internlm2-20b read 0.0704 at most on an H100 80GB HBM3 at 700 W (its 48
 # layers carry the two paths' bf16 roundings further: its layer 15 read
-# 0.0296), its shifted control 1.45-1.64.  The MoE configs read above
-# where decode and the prefill route a token to different experts (a
-# near tie of the router broken apart by the two paths' roundings; the
-# token's later cache entries move with it): granite-moe-1b's cache
-# 0.0726 (logits 0.0128, under 0.05; control 0.636-0.712),
-# deepseek-v2-236b's (4 layers, 160 experts) cache 0.181 and logits
-# 0.0983 (control 1.26-1.53); over the slots no flip reached they read
-# 0.0149 and 0.0183, and there the check holds them to the base gates
-# (``unflipped_*``).
+# 0.0296), its shifted control 1.45-1.64.  falcon-mamba-7b's 64 layers
+# read 0.0714 (its state ``h``; ``conv`` 0.0546, logits 0.0517; layer 0
+# reads 0, and the reading grows ~0.001 a layer, as internlm2-20b's), its
+# control (layer 0's ``h`` one token short) 0.381-0.637.  The MoE configs
+# keep the base gates: their check replays the serve's routing into the
+# prefill (``replayed_routing``), so a router's near tie that the two
+# paths' roundings break apart moves neither a token's later entries nor
+# its row's state.
 SERVE_GATES = {"internlm2_20b": (2e-1, 2e-1),
-               "granite_moe_1b": (2e-1, SERVE_LOGIT_TOL),
-               "deepseek_v2_236b": (4e-1, 2e-1)}
+               "falcon_mamba_7b": (2e-1, 2e-1)}
 # SHA-1 integer operations per 64-byte block, in the card's 3-input
 # forms: 64 schedule words x (two 3-input XORs (LOP3) + a rotate) + 80
 # rounds x (f as one LOP3, two adds for f + e + W + K, rotl(a, 5) + X as
@@ -300,6 +319,19 @@ DENSE_CONFIGS = (("gemma3_1b", None), ("internlm2_20b", None),
 # embeddings before each prompt.
 MOE_MLA_CONFIGS = (("granite_moe_1b", None), ("deepseek_v2_236b", 4),
                    ("phi3_vision_4b", None))
+# The SSM, hybrid and encoder-decoder configs served after them, at full
+# width: (arch, layers kept, None for all of them).  whisper-tiny (4
+# encoder and 4 decoder layers, 96 MB stored with its head padding) goes
+# through a SEARS checkpoint before it serves.  falcon-mamba-7b keeps all
+# 64 layers (14.3 GB; its stacked in_proj, 8.6 GB, is drawn in fp32
+# beside its bf16 result, ~31 GB at the init's peak).  jamba-1.5-large
+# keeps one period of its pattern, 8 of 72 layers (one attention layer,
+# seven Mamba mixers, four MLPs and four MoE layers): 8 layers hold 90.6
+# GB, more than the card, so it draws its routed experts once a group
+# (``SHARED_EXPERT_DRAW``): 32.6 GB resident.
+SSM_ENCDEC_CONFIGS = (("whisper_tiny", None), ("falcon_mamba_7b", None),
+                      ("jamba_15_large", 8))
+SHARED_EXPERT_DRAW = ("jamba_15_large",)
 # nodes killed in every cluster before a degraded restore: n - k of (10,5)
 KILLED_NODES = (0, 2, 4, 6, 8)
 
@@ -1087,40 +1119,61 @@ def checkpoint_phase(sizes: Sizes, device, fused_engine, sync
     return line, model, restored
 
 
-def decode_vs_prefill(model, params, tokens, n: int, device, sync,
-                      cache_tol: float = SERVE_CACHE_TOL,
-                      logit_tol: float = SERVE_LOGIT_TOL,
-                      patches=None) -> dict:
-    """Serve ``tokens`` (after ``patches``, where given) to ``n`` greedy
-    tokens, then one prefill over the same input and the n-1 tokens fed
-    back.  Decode step i fed token i at slot P+i (P counts the patches),
-    so the slots P..P+n-2 of both caches hold the same tokens' entries
-    (GQA's k/v, MLA's c/kr), and the last step's logits and the
-    prefill's are for the same position.  Errors are shares of the
-    compared tensor's largest |value|; the cache's per layer.  With MoE
-    the check also counts the (token, layer) pairs of those slots whose
-    top-k set differs between decode and the prefill (``flips``), with
-    the router margins the two runs saw there."""
-    import torch
-    from repro_torch.launch.serve import serve
+# Caches by kind: slot caches hold one entry per position (GQA's k/v,
+# MLA's c/kr), state caches the SSM state after the last position, cross
+# caches the encoder's k/v for every position of the frames.
+SLOT_CACHES = ("k", "v", "c", "kr")
+STATE_CACHES = ("h", "conv")
+CROSS_CACHES = ("ek", "ev")
 
-    P = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+
+def layer_rel_err(got, want) -> list:
+    """max |got - want| / max |want| per layer (the first axis)."""
+    dims = tuple(range(1, got.dim()))
+    return ((got - want).abs().amax(dim=dims)
+            / want.abs().amax(dim=dims)).tolist()
+
+
+def decode_vs_prefill(model, params, batch: dict, n: int, device, sync,
+                      cache_tol: float = SERVE_CACHE_TOL,
+                      logit_tol: float = SERVE_LOGIT_TOL) -> dict:
+    """Serve ``batch`` (its tokens after its patches, where given; an
+    encoder-decoder's frames take no position) to ``n`` greedy tokens,
+    then one prefill over the same input and the n-1 tokens fed back.
+    Decode step i fed token i at slot P+i (P counts the patches), so the
+    slots P..P+n-2 of both slot caches hold the same tokens' entries
+    (GQA's k/v, MLA's c/kr); both state caches (the SSM's ``h`` and
+    ``conv``) hold the state after the same P+n-1 tokens; both runs
+    encode the same frames, so the cross caches (``ek``/``ev``) must be
+    equal bit for bit; and the last step's logits and the prefill's are
+    for the same position.  Errors are shares of the compared tensor's
+    largest |value|; the caches' per layer.  The controls, which must
+    read above ``cache_tol``: layer 0's first slot cache one slot off,
+    and layer 0's ``h`` of a prefill one token shorter.  With MoE the
+    prefills route each token as the serve did (``replayed_routing``:
+    decode and the prefill round a router's near ties apart, and a
+    flipped token moves its later entries and its row's state), and the
+    check counts the (token, MoE layer) pairs whose top-k set the
+    prefill would have chosen otherwise (``routing_flips``), with the
+    router margins the two runs saw there."""
+    import torch
+    from repro_torch.launch.serve import prefix_len, serve
+
+    P = prefix_len(batch)
     moe = bool(model.cfg.n_experts)
     model.moe_log = [] if moe else None
     try:
-        res = serve(model, params, tokens, n, device, patches)
-        serve_log, model.moe_log = model.moe_log, [] if moe else None
-        batch = {"tokens": torch.cat([tokens, res["tokens"][:, :n - 1]],
-                                     dim=1)}
-        if patches is not None:
-            batch["patches"] = patches
-        t0 = time.perf_counter()
-        ext, ext_cache = model.prefill(params, batch)
-        sync()
-        ext_s = time.perf_counter() - t0
-        ext_log = model.moe_log
+        res = serve(model, params, batch, n, device)
+        serve_log = model.moe_log
     finally:
         model.moe_log = None
+    ext_batch = dict(batch, tokens=torch.cat(
+        [batch["tokens"], res["tokens"][:, :n - 1]], dim=1))
+    with replayed_routing(serve_log, n, P + n - 1) as ext_log:
+        t0 = time.perf_counter()
+        ext, ext_cache = model.prefill(params, ext_batch)
+        sync()
+        ext_s = time.perf_counter() - t0
     logits, ext = res["logits"].float(), ext.float()
     scale = float(ext.abs().max())
     d = (logits - ext).abs()
@@ -1136,94 +1189,127 @@ def decode_vs_prefill(model, params, tokens, n: int, device, sync,
            "argmax_decided_rows": int(decided.sum()),
            "argmax_decided_agree": bool(agree[decided].all()),
            "finite": bool(torch.isfinite(logits).all())}
-    names = sorted(ext_cache)
-    for name in names:
-        got = res["cache"][name][:, :, P:P + n - 1].float()
-        want = ext_cache[name][:, :, P:P + n - 1].float()
-        dims = tuple(range(1, got.dim()))
-        rel = (got - want).abs().amax(dim=dims) / want.abs().amax(dim=dims)
-        out[f"cache_rel_err_{name}"] = rel.tolist()
-    # the check must see a cache one slot off: layer 0's first entry
-    # (GQA's k, MLA's c), shifted
-    first = "c" if "c" in ext_cache else "k"
-    got = res["cache"][first][0, :, P:P + n - 2].float()
-    want = ext_cache[first][0, :, P + 1:P + n - 1].float()
-    out["shifted_rel_err"] = float((got - want).abs().max()
-                                   / want.abs().max())
+    cache = res["cache"]
+    slots = [name for name in sorted(ext_cache) if name in SLOT_CACHES]
+    states = [name for name in sorted(ext_cache) if name in STATE_CACHES]
+    cross = [name for name in sorted(ext_cache) if name in CROSS_CACHES]
+    for name in slots:
+        out[f"cache_rel_err_{name}"] = layer_rel_err(
+            cache[name][:, :, P:P + n - 1].float(),
+            ext_cache[name][:, :, P:P + n - 1].float())
+    for name in states:
+        out[f"cache_rel_err_{name}"] = layer_rel_err(
+            cache[name].flatten(0, -4), ext_cache[name].flatten(0, -4))
+    out["cross_caches_identical"] = all(
+        torch.equal(cache[name], ext_cache[name]) for name in cross)
+    controls = []
+    if slots:  # the check must see a cache one slot off
+        first = "c" if "c" in ext_cache else "k"
+        got = cache[first][0, :, P:P + n - 2].float()
+        want = ext_cache[first][0, :, P + 1:P + n - 1].float()
+        out["shifted_rel_err"] = float((got - want).abs().max()
+                                       / want.abs().max())
+        controls.append(out["shifted_rel_err"])
+    if states:  # ... and a state one token short
+        short_batch = dict(ext_batch, tokens=ext_batch["tokens"][:, :-1])
+        with replayed_routing(serve_log, n, P + n - 2):
+            _, short_cache = model.prefill(params, short_batch)
+        got = short_cache["h"].flatten(0, -4)[0]
+        want = ext_cache["h"].flatten(0, -4)[0]
+        out["state_short_rel_err"] = float((got - want).abs().max()
+                                           / want.abs().max())
+        controls.append(out["state_short_rel_err"])
+        del short_cache
     if moe:
-        # the same readings over the slots whose routing had not flipped
-        # in any layer before the one read (the cache at layer l comes
-        # from the layers below it); the logits' row only if it never
-        # flipped
-        flips = routing_flips(serve_log, ext_log, model.cfg.n_layers, P, n)
-        first = flips.pop("first_flip")
-        out.update(flips)
-        for name in names:
-            got = res["cache"][name][:, :, P:P + n - 1].float()
-            want = ext_cache[name][:, :, P:P + n - 1].float()
-            rel = []
-            for layer in range(got.shape[0]):
-                clean = first >= layer
-                err = (got[layer] - want[layer]).abs()[clean]
-                rel.append(float(err.max()) / float(want[layer].abs().max())
-                           if err.numel() else None)
-            out[f"unflipped_cache_rel_err_{name}"] = rel
-        clean = first[:, -1] == model.cfg.n_layers
-        out["unflipped_logit_rows"] = int(clean.sum())
-        out["unflipped_logit_rel_err"] = float(d[clean].max()) / scale \
-            if clean.any() else None
+        out.update(routing_flips(serve_log, ext_log, P, n))
     out["ok"] = (out["finite"] and out["argmax_decided_agree"]
                  and out["logit_rel_err"] <= logit_tol
-                 and max(err for name in names
+                 and all(err <= cache_tol for name in slots + states
                          for err in out[f"cache_rel_err_{name}"])
-                 <= cache_tol
-                 and out["shifted_rel_err"] > cache_tol)
-    if moe:  # the slots no flip reached, under the base gates
-        out["ok"] = (out["ok"] and all(
-            err <= SERVE_CACHE_TOL for name in names
-            for err in out[f"unflipped_cache_rel_err_{name}"]
-            if err is not None)
-            and (out["unflipped_logit_rel_err"] or 0.0) <= SERVE_LOGIT_TOL)
+                 and out["cross_caches_identical"]
+                 and min(controls) > cache_tol)
     return {"res": res, "check": out}
 
 
-def routing_flips(serve_log, ext_log, n_layers: int, P: int, n: int
-                  ) -> dict:
-    """(token, layer) pairs of slots P..P+n-2 whose top-k expert set
-    differs between the decode steps (``serve_log`` after the prefill's
-    layers) and the extended prefill (``ext_log``), with the smaller of
-    the two router margins at each flip, and ``first_flip`` (B, n-1):
-    each slot's first layer with a flip (``n_layers`` for none)."""
+def served(serve_log, n: int, field: int) -> list:
+    """Per MoE layer, one field of a serve's routing log (0 ``idx``, 2
+    ``margin``) over the prompt and the n-1 fed-back tokens: the
+    prefill's entry, then the decode steps' (as many entries a pass as
+    MoE layers), joined along the positions."""
     import torch
-    flips, margins, pairs = 0, [], 0
-    first = None
-    for i in range(n - 1):
-        for layer in range(n_layers):
-            idx, _, margin = serve_log[n_layers * (1 + i) + layer]
-            e_idx, _, e_margin = ext_log[layer]
-            a = idx[:, 0].sort(-1).values
-            b = e_idx[:, P + i].sort(-1).values
-            differ = (a != b).any(-1)
-            if first is None:
-                first = torch.full((idx.shape[0], n - 1), n_layers,
-                                   dtype=torch.long, device=idx.device)
-            first[:, i] = torch.where(differ & (first[:, i] == n_layers),
-                                      layer, first[:, i])
-            pairs += differ.numel()
-            flips += int(differ.sum())
-            margins += torch.minimum(margin[:, 0], e_margin[:, P + i])[
-                differ].tolist()
-    return {"routing_pairs": pairs, "routing_flips": flips,
-            "routing_flip_margins": sorted(margins), "first_flip": first}
+    n_moe = len(serve_log) // n
+    return [torch.cat([serve_log[j][field]] + [
+        serve_log[n_moe * (1 + i) + j][field] for i in range(n - 1)], dim=1)
+        for j in range(n_moe)]
 
 
-def drop_shares(log, n_layers: int) -> dict:
-    """The share of routed slots dropped by capacity at prefill (the
-    first ``n_layers`` entries of a ``serve`` log) and at decode."""
+@contextlib.contextmanager
+def replayed_routing(serve_log, n: int, length: int):
+    """Within the block, route the MoE layers of a prefill over the
+    first ``length`` positions of a serve's prompt and fed-back tokens
+    as that serve routed them: layer j takes the top-k sets of
+    ``serve_log`` (the serve's prefill, then its n-1 decode steps, as
+    many entries a pass as MoE layers), through ``moe_route(idx=...)``.
+    Yields the list that gets, per MoE layer, the prefill's own routing
+    of the real tokens, ``(idx, margin)``, (B, length, K) and (B,
+    length).  Without a log (no MoE) it does nothing."""
+    import torch
+    from repro_torch.models import layers as L
+
+    own = []
+    if serve_log is None:
+        yield own
+        return
+    want = [idx[:, :length] for idx in served(serve_log, n, 0)]
+    route = L.moe_route
+
+    def replay(xg, router, cfg):
+        r = route(xg, router, cfg)
+        idx = want[len(own)]
+        B, S, K = idx.shape
+        own.append((r.idx.reshape(-1, K)[:B * S].reshape(B, S, K),
+                    r.margin.reshape(-1)[:B * S].reshape(B, S)))
+        full = r.idx.reshape(-1, K).clone()  # the group's pad rows: own
+        full[:B * S] = idx.reshape(-1, K)
+        return route(xg, router, cfg, idx=full.reshape(r.idx.shape))
+
+    L.moe_route = replay
+    try:
+        yield own
+    finally:
+        L.moe_route = route
+
+
+def routing_flips(serve_log, ext_log, P: int, n: int) -> dict:
+    """(token, MoE layer) pairs whose top-k expert set the extended
+    prefill (its own routing, ``ext_log``) chose otherwise than the
+    serve (``serve_log``: the prefill, then the n-1 decode steps): at
+    the decoded slots P..P+n-2, with the smaller of the two router
+    margins at each flip, and at the prompt's slots."""
+    import torch
+    flips, prompt, margins = 0, 0, []
+    for (e_idx, e_margin), idx, margin in zip(
+            ext_log, served(serve_log, n, 0), served(serve_log, n, 2)):
+        differ = (idx.sort(-1).values != e_idx.sort(-1).values).any(-1)
+        prompt += int(differ[:, :P].sum())
+        flips += int(differ[:, P:].sum())
+        margins += torch.minimum(margin, e_margin)[:, P:][
+            differ[:, P:]].tolist()
+    pairs = len(ext_log) * ext_log[0][0].shape[0] * (n - 1)
+    return {"routing_pairs": pairs,
+            "routing_flips": flips, "routing_flip_margins": sorted(margins),
+            "prompt_routing_flips": prompt}
+
+
+def drop_shares(log, n: int) -> dict:
+    """The share of routed slots dropped by capacity at prefill and at
+    decode, from the log of a ``serve`` to ``n`` tokens (a prefill and
+    n-1 decode steps, each pass as many entries as MoE layers)."""
     def share(entries):
         kept = sum(int(keep.sum()) for _, keep, _ in entries)
         return 1.0 - kept / sum(keep.numel() for _, keep, _ in entries)
-    return {"prefill": share(log[:n_layers]), "decode": share(log[n_layers:])}
+    n_moe = len(log) // n
+    return {"prefill": share(log[:n_moe]), "decode": share(log[n_moe:])}
 
 
 def serve_phase(sizes: Sizes, device, model, params, sync
@@ -1244,7 +1330,8 @@ def serve_phase(sizes: Sizes, device, model, params, sync
         for seed in SERVE_SEEDS:
             tokens = torch.from_numpy(np.random.default_rng(seed).integers(
                 0, cfg.vocab_size, size=(B, P))).to(device)
-            r = decode_vs_prefill(model, params, tokens, n, device, sync)
+            r = decode_vs_prefill(model, params, {"tokens": tokens}, n,
+                                  device, sync)
             r["check"]["seed"] = seed
             checks.append(r["check"])
             if seed != SERVE_SEEDS[0]:
@@ -1474,24 +1561,56 @@ def checkpoint_round_trip(params, fused_engine, sync, on_card: bool
     return restored, fields, checks
 
 
+def shared_expert_leaf(n_experts: int):
+    """A per-leaf init, ``leaf(gen, path, spec)``, that draws each stacked
+    routed-expert leaf of a hybrid, (G, 4, E, D, F), once at (G, 1, E,
+    D, F) by the reference's rule and expands it over the group's MoE
+    layers: a stride-0 view, so every shape and every FLOP stays and the
+    four layers share one draw of expert weights.  Other leaves are made
+    by the rule itself."""
+    from repro_torch.models import layers as L
+
+    def leaf(gen, path, spec):
+        if path[-1] in ("wg", "wu", "wd") and \
+                spec.shape[-3:-2] == (n_experts,):
+            one = L.init_leaf(gen, path, L.Spec(
+                spec.shape[:1] + (1,) + spec.shape[2:], spec.dtype))
+            return one.expand(spec.shape)
+        return L.init_leaf(gen, path, spec)
+    return leaf
+
+
+def cache_bytes(cache: dict) -> dict:
+    """A cache's bytes by kind: slot, state and cross caches."""
+    out = {}
+    for kind, names in (("slot", SLOT_CACHES), ("state", STATE_CACHES),
+                        ("cross", CROSS_CACHES)):
+        out[kind] = sum(t.numel() * t.element_size()
+                        for name, t in cache.items() if name in names)
+    return out
+
+
 def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
                   sync, card: str = "") -> list[dict]:
     """The configs of ``configs`` ((arch, layers kept) pairs) at full
     width, one at a time on a freed card: weights from seed 0 (the first
     config's through a SEARS checkpoint restored with n-k nodes of every
-    cluster dead, bit for bit), then the serve check on each of
-    ``SERVE_SEEDS``.  A VLM config prefills seeded patch embeddings
-    before each prompt.  An MoE config serves at its published capacity
-    factor (timed; the share of routed slots dropped at prefill and at
-    decode), and runs the check at a capacity that drops nothing,
-    ``capacity_factor = E / k``: a decode group holds the B new tokens
-    alone, so under drops decode and prefill differ by design.  Returns
-    one line per config, ``ok`` false if a check failed."""
+    cluster dead, bit for bit; a config of ``SHARED_EXPERT_DRAW`` draws
+    its routed experts once per group, ``shared_expert_leaf``), then the
+    serve check on each of ``SERVE_SEEDS``.  A VLM config prefills
+    seeded patch embeddings before each prompt, an encoder-decoder
+    encodes as many seeded frame embeddings as the prompt has tokens.
+    An MoE config serves at its published capacity factor (timed; the
+    share of routed slots dropped at prefill and at decode), and runs
+    the check at a capacity that drops nothing, ``capacity_factor = E /
+    k``: a decode group holds the B new tokens alone, so under drops
+    decode and prefill differ by design.  Returns one line per config,
+    ``ok`` false if a check failed."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import prompts, serve
     from repro_torch.models import api
-    from repro_torch.tree import flatten_with_path
+    from repro_torch.tree import flatten_with_path, map_with_path
 
     on_card = device.type == "cuda"
     B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
@@ -1508,27 +1627,45 @@ def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
         elif depth is not None:
             cfg = dataclasses.replace(cfg, n_layers=depth)
         model = api.get_model(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        shared = arch in SHARED_EXPERT_DRAW
         t0 = time.perf_counter()
-        params = model.init(torch.Generator(device=device).manual_seed(0))
+        params = model._zero_pads(map_with_path(functools.partial(
+            shared_expert_leaf(cfg.n_experts), gen), model.param_shapes())) \
+            if shared else model.init(gen)
         sync()
         init_s = time.perf_counter() - t0
         leaves = flatten_with_path(params)
         nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
-        windows = model._windows()
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for _, t in leaves}
+        heads = bool(cfg.n_heads)
+        windows = model._windows() if hasattr(model, "_windows") else []
         line = {"phase": phase, "card": card, "arch": cfg.name,
+                "family": cfg.family,
                 "layers": cfg.n_layers, "full_layers": full_layers,
                 "depth_cut": None if cfg.n_layers == full_layers
                 else f"{full_layers} -> {cfg.n_layers} layers",
-                "d_model": cfg.d_model, "heads": cfg.n_heads,
-                "stored_heads": cfg.h_store, "kv_heads": cfg.n_kv_heads,
-                "head_dim": cfg.head_dim, "window": cfg.sliding_window,
-                "layers_past_window": sum(0 < w < P + n for w in windows),
+                "d_model": cfg.d_model,
+                # an attention-free model has no heads and no windows
+                "heads": cfg.n_heads if heads else None,
+                "stored_heads": cfg.h_store if heads else None,
+                "kv_heads": cfg.n_kv_heads if heads else None,
+                "head_dim": cfg.head_dim if heads else None,
+                "window": cfg.sliding_window if heads else None,
+                "layers_past_window": sum(0 < w < P + n for w in windows)
+                if heads else None,
                 "params": cfg.param_count(),
                 "stored_params": sum(t.numel() for _, t in leaves),
-                "stored_bytes": nbytes, "leaves": len(leaves),
+                "stored_bytes": nbytes,
+                "resident_bytes": sum(storages.values()),
+                "leaves": len(leaves),
                 "init_seconds": init_s,
                 "init_peak_bytes": torch.cuda.max_memory_allocated()
                 if on_card else None}
+        line["shared_expert_draw"] = (
+            "one draw of each routed-expert leaf per group, expanded "
+            "over the group's MoE layers (stride 0)" if shared else None)
         if cfg.n_experts:
             line.update(active_params=cfg.active_param_count(),
                         experts=cfg.n_experts,
@@ -1544,17 +1681,27 @@ def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
                              "qk_head_dim": cfg.qk_nope_head_dim
                              + cfg.qk_rope_head_dim,
                              "v_head_dim": cfg.v_head_dim})
+        if cfg.ssm_state:
+            line.update(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+                        dt_rank=cfg.dt_rank, ssm_conv=cfg.ssm_conv,
+                        ssm_compute_dtype=cfg.ssm_compute_dtype,
+                        attn_every=cfg.attn_every or None)
         if cfg.n_patches:
             line["patches"] = cfg.n_patches
-        del leaves
+        if cfg.family == "encdec":
+            line.update(encoder_layers=cfg.n_encoder_layers, frames=P)
+        del leaves, storages
         checks = {}
         if arch == configs[0][0]:
             params, fields, ckpt_checks = checkpoint_round_trip(
                 params, fused_engine, sync, on_card)
             line.update(fields)
             checks.update(ckpt_checks)
-        cache_tol, logit_tol = SERVE_GATES.get(
-            arch, (SERVE_CACHE_TOL, SERVE_LOGIT_TOL))
+        # a config's own gates stand on its full-size readings; a
+        # reduced rehearsal keeps the base gates
+        cache_tol, logit_tol = (SERVE_CACHE_TOL, SERVE_LOGIT_TOL) \
+            if sizes.reduced else SERVE_GATES.get(
+                arch, (SERVE_CACHE_TOL, SERVE_LOGIT_TOL))
         check_model = model
         if cfg.n_experts:
             check_model = api.get_model(dataclasses.replace(
@@ -1562,17 +1709,16 @@ def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
         serve_checks, times, drops, first = [], [], [], None
         with torch.no_grad():
             for seed in SERVE_SEEDS:
-                tokens, patches = prompts(cfg, B, P, seed, device)
+                batch = prompts(cfg, B, P, seed, device)
                 if cfg.n_experts:  # timed at the published capacity
                     model.moe_log = []
                     try:
-                        res = serve(model, params, tokens, n, device)
-                        drops.append(drop_shares(model.moe_log,
-                                                 cfg.n_layers))
+                        res = serve(model, params, batch, n, device)
+                        drops.append(drop_shares(model.moe_log, n))
                     finally:
                         model.moe_log = None
-                r = decode_vs_prefill(check_model, params, tokens, n, device,
-                                      sync, cache_tol, logit_tol, patches)
+                r = decode_vs_prefill(check_model, params, batch, n, device,
+                                      sync, cache_tol, logit_tol)
                 if not cfg.n_experts:
                     res = r["res"]
                 r["check"]["seed"] = seed
@@ -1580,6 +1726,7 @@ def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
                 times.append((res["prefill_s"], res["decode_s"]))
                 if first is None:
                     first = res["tokens"]
+                    line["cache_bytes"] = cache_bytes(res["cache"])
                 del r, res
         prefill_s = statistics.median(t[0] for t in times)
         decode_s = statistics.median(t[1] for t in times)
@@ -1621,6 +1768,13 @@ def moe_mla_configs_phase(sizes: Sizes, device, fused_engine, sync,
     """``configs_phase`` over ``MOE_MLA_CONFIGS``."""
     return configs_phase("moe_mla_configs", MOE_MLA_CONFIGS, sizes, device,
                          fused_engine, sync, card)
+
+
+def ssm_encdec_configs_phase(sizes: Sizes, device, fused_engine, sync,
+                             card: str = "") -> list[dict]:
+    """``configs_phase`` over ``SSM_ENCDEC_CONFIGS``."""
+    return configs_phase("ssm_encdec_configs", SSM_ENCDEC_CONFIGS, sizes,
+                         device, fused_engine, sync, card)
 
 
 def live_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -2024,7 +2178,8 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
         raise AssertionError(f"train: checks failed: "
                              f"{train_line['checks']}")
     config_lines = []
-    for phase in (dense_configs_phase, moe_mla_configs_phase):
+    for phase in (dense_configs_phase, moe_mla_configs_phase,
+                  ssm_encdec_configs_phase):
         lines = phase(sizes, device, fused_engine, sync, card)
         for line in lines:
             emit(line)

@@ -4,9 +4,7 @@
 reference's (``repro/configs/base.py``), with only the imports changed.
 Each architecture is a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; ``reduced()`` derives the same-family small
-config the CPU tests use.  The port holds the configs of the families it
-runs: ``get_config`` of any other id raises and names the roadmap queue
-that holds its port.
+config the CPU tests use.
 """
 
 from __future__ import annotations
@@ -191,19 +189,9 @@ ARCH_IDS = [
 ]
 
 
-# ids whose configuration (and model family) the port holds so far
-PORTED = ("llama32_1b", "gemma3_1b", "internlm2_20b", "deepseek_coder_33b",
-          "granite_moe_1b", "deepseek_v2_236b", "phi3_vision_4b")
-
-
 def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_")
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md, Queue 1: the Mamba "
-            f"layers and the other model families); the port "
-            f"holds {list(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG

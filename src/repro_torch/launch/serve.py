@@ -8,7 +8,8 @@ On the CPU, at the reduced config:
       --tiny --device cpu
 
 A VLM config (``phi3_vision_4b``) prefills seeded image patch embeddings
-before the prompt's tokens.
+before the prompt's tokens; an encoder-decoder (``whisper_tiny``)
+encodes seeded frame embeddings, as many as the prompt's tokens, first.
 
 Port of the JAX reference's ``repro/launch/serve.py``.  The weights come
 from a seeded ``torch.Generator``; ``--ckpt`` first saves them through
@@ -29,34 +30,35 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prompts(cfg, B: int, P: int, seed: int, device):
-    """(tokens (B, P), patches or None): the tokens of ``seed``'s numpy
-    generator and, for a config with ``n_patches``, image patch
-    embeddings (B, n_patches, d_model) drawn after them, N(0, 1) in bf16,
-    as ``api.make_batch`` draws a VLM batch."""
+def prompts(cfg, B: int, P: int, seed: int, device) -> dict:
+    """The serve batch of ``seed``'s numpy generator: ``tokens`` (B, P),
+    then, drawn after them, N(0, 1) in bf16 (rounded through fp32): image
+    patch embeddings ``patches`` (B, n_patches, d_model) for a config
+    with ``n_patches``, as ``api.make_batch`` draws a VLM batch, and
+    audio frame embeddings ``frames`` (B, P, d_model) for an
+    encoder-decoder, as the reference's launcher draws them."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, P)))
-    patches = None
-    if cfg.n_patches:
-        patches = torch.from_numpy(rng.normal(
-            size=(B, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(B, P))).to(device)}
+    extra = ("patches", cfg.n_patches) if cfg.n_patches else \
+        ("frames", P) if cfg.family == "encdec" else None
+    if extra is not None:
+        batch[extra[0]] = torch.from_numpy(rng.normal(
+            size=(B, extra[1], cfg.d_model)).astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
-    return tokens.to(device), patches
+    return batch
 
 
-def serve(model, params, tokens, n_tokens: int, device,
-          patches=None) -> dict:
-    """Prefill ``tokens`` (B, P) -- after ``patches`` (B, n_patches,
-    d_model), where given, which take the first cache slots -- then
+def serve(model, params, batch: dict, n_tokens: int, device) -> dict:
+    """Prefill ``batch`` -- its ``tokens`` (B, P) after its ``patches``
+    (B, n_patches, d_model), where given, which take the first cache
+    slots; an encoder-decoder's ``frames`` take none -- then
     ``n_tokens - 1`` greedy decode steps; returns the generated tokens
     (B, n_tokens), the last step's logits and cache, and the times."""
     import torch
-    batch = {"tokens": tokens}
-    if patches is not None:
-        batch["patches"] = patches
-    P = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    P = prefix_len(batch)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, cache_len=P + n_tokens)
     tok = torch.argmax(logits, -1)[:, None]
@@ -72,6 +74,14 @@ def serve(model, params, tokens, n_tokens: int, device,
     decode_s = time.perf_counter() - t0
     return {"tokens": torch.cat(out, dim=1), "logits": logits,
             "cache": cache, "prefill_s": prefill_s, "decode_s": decode_s}
+
+
+def prefix_len(batch: dict) -> int:
+    """Decoder positions a batch's prefill takes: its tokens and
+    patches."""
+    patches = batch.get("patches")
+    return batch["tokens"].shape[1] + (
+        0 if patches is None else patches.shape[1])
 
 
 def main(argv=None) -> None:
@@ -111,11 +121,12 @@ def main(argv=None) -> None:
         params = mgr.restore(params)
         print(f"checkpoint: {saved['bytes']} bytes saved in {t1 - t0:.2f}s,"
               f" restored in {time.perf_counter() - t1:.2f}s")
-    tokens, patches = prompts(cfg, args.batch, args.prompt_len, 0, device)
+    batch = prompts(cfg, args.batch, args.prompt_len, 0, device)
     with torch.no_grad():
-        res = serve(model, params, tokens, args.tokens, device, patches)
+        res = serve(model, params, batch, args.tokens, device)
     steps = args.tokens - 1
-    seen = f" after {cfg.n_patches} patches" if cfg.n_patches else ""
+    seen = f" after {cfg.n_patches} patches" if cfg.n_patches else \
+        f" over {args.prompt_len} frames" if "frames" in batch else ""
     print(f"{cfg.name} on {device}: prefill {args.batch}x{args.prompt_len}"
           f"{seen} "
           f"in {res['prefill_s']:.2f}s; {steps} decode steps x "

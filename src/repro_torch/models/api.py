@@ -2,9 +2,10 @@
 batches, parameter counts, and the carry of the reference's
 weights and train state into the port.
 
-Port of the JAX reference's ``repro/models/api.py`` for the families the
-port runs: dense, MoE (with MLA) and VLM backbones fed precomputed
-patch embeddings.
+Port of the JAX reference's ``repro/models/api.py`` for its six model
+families: dense, MoE (with MLA), VLM backbones fed precomputed patch
+embeddings, the pure SSM (Mamba-1), the hybrid attention / SSM / MoE
+stack and the encoder-decoder fed precomputed frames.
 """
 
 from __future__ import annotations
@@ -15,42 +16,49 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models.base import LM
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.mamba import MambaLM
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.tree import flatten_with_path, tree_map
 
 
+_FAMILIES = {"ssm": MambaLM, "hybrid": HybridLM, "encdec": EncDecLM}
+
+
 def get_model(cfg: ModelConfig, remat: bool = True,
-              remat_policy: str | None = None) -> TransformerLM:
-    """``remat_policy``: None or ``"nothing"`` (recompute every layer
+              remat_policy: str | None = None) -> LM:
+    """The config's model class: ``MambaLM``, ``HybridLM``, ``EncDecLM``,
+    or ``TransformerLM`` for the dense, MoE and VLM families.
+    ``remat_policy``: None or ``"nothing"`` (recompute every layer
     activation) or ``"dots"`` (keep the matmul outputs)."""
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP.md, Queue "
-            f"1 E: the Mamba layers and the other model families)")
-    # dense | moe | vlm
-    return TransformerLM(cfg, remat=remat, remat_policy=remat_policy)
+    cls = _FAMILIES.get(cfg.family, TransformerLM)
+    return cls(cfg, remat=remat, remat_policy=remat_policy)
 
 
 # ---------------------------------------------------------------------------
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, rng: np.random.Generator,
                batch_override: int | None = None, device="cuda") -> dict:
-    """Random train batch, ``{"tokens": (B, S) int32}`` and for a VLM
-    ``"patches"`` (B, n_patches, d_model) bf16, drawn from ``rng`` as the
-    reference draws them (the patches after the tokens, rounded to bf16
-    through fp32 as the reference's ``jnp.asarray`` rounds them), so one
-    seed gives both packages the same bits.  Decode shapes and the
-    frames of the encoder-decoder family come with their ports (ROADMAP.md,
-    Queue 1 E and F)."""
-    if shape.kind == "decode" or cfg.family not in ("dense", "moe", "vlm"):
+    """Random train batch, ``{"tokens": (B, S) int32}``, for a VLM with
+    ``"patches"`` (B, n_patches, d_model) and for an encoder-decoder with
+    ``"frames"`` (B, S, d_model), both bf16, drawn from ``rng`` as the
+    reference draws them (after the tokens, rounded to bf16 through fp32
+    as the reference's ``jnp.asarray`` rounds them), so one seed gives
+    both packages the same bits.  Decode shapes come with their port
+    (ROADMAP.md, Queue 1 F)."""
+    if shape.kind == "decode":
         raise NotImplementedError(
-            f"make_batch: only train batches of the dense, MoE and VLM "
-            f"families are ported (got {shape.kind!r}, {cfg.family!r})")
-    B = batch_override or shape.global_batch
-    arr = rng.integers(0, cfg.vocab_size, size=(B, shape.seq_len))
+            "make_batch: decode-shape inputs are not ported (ROADMAP.md, "
+            "Queue 1 F)")
+    B, S = batch_override or shape.global_batch, shape.seq_len
+    arr = rng.integers(0, cfg.vocab_size, size=(B, S))
     out = {"tokens": torch.from_numpy(arr.astype(np.int32)).to(device)}
-    if cfg.family == "vlm":
-        arr = rng.normal(size=(B, cfg.n_patches, cfg.d_model))
-        out["patches"] = torch.from_numpy(arr.astype(np.float32)).to(
+    extra = {"vlm": ("patches", cfg.n_patches),
+             "encdec": ("frames", S)}.get(cfg.family)
+    if extra is not None:
+        arr = rng.normal(size=(B, extra[1], cfg.d_model))
+        out[extra[0]] = torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return out
 

@@ -1,14 +1,14 @@
-"""Neural-net building blocks of the transformer family, in PyTorch.
+"""Neural-net building blocks of the four model families, in PyTorch.
 
-Port of the JAX reference's ``repro/models/layers.py`` but its Mamba
-block: RMSNorm, LayerNorm, RoPE, GQA attention (a direct einsum path,
-and a blockwise flash-style path for long sequences), SwiGLU/GELU MLPs,
-the GQA attention layer, MLA latent attention (the naive train/prefill
-path and the absorbed decode path) and the capacity-based top-k MoE FFN.
-Pure functions over explicit parameter dicts, in the reference's layouts
-and precision policy: parameters and activations in bf16; softmax,
-norms, RoPE and the router in fp32.  Mamba waits for its port
-(ROADMAP.md, Queue 1 E).
+Port of the JAX reference's ``repro/models/layers.py``: RMSNorm,
+LayerNorm, RoPE, GQA attention (a direct einsum path, and a blockwise
+flash-style path for long sequences), SwiGLU/GELU MLPs, the GQA
+attention layer, MLA latent attention (the naive train/prefill path and
+the absorbed decode path), the capacity-based top-k MoE FFN and the
+Mamba-1 selective SSM block (a chunked scan and the one-token decode
+step).  Pure functions over explicit parameter dicts, in the
+reference's layouts and precision policy: parameters and activations in
+bf16; softmax, norms, RoPE, the router and the SSM state in fp32.
 
 The models call ``attention`` here, as the reference's models do; the
 hand-written flash kernel is ``repro_torch.kernels.ops.flash_attention``,
@@ -17,6 +17,7 @@ which is held against this function.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, NamedTuple
@@ -32,8 +33,16 @@ Params = dict[str, Any]
 ATTN_DIRECT_LIMIT = 4096 * 4096
 ATTN_BLOCK_Q = 1024
 ATTN_BLOCK_KV = 1024
+SSM_CHUNK = 64
 
 NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Shape and dtype of one parameter leaf."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 def dense_init(gen: torch.Generator, shape, scale: float = 0.02,
@@ -329,22 +338,29 @@ class Routing(NamedTuple):
     C: int
 
 
-def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg) -> Routing:
+def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg,
+              idx: torch.Tensor | None = None) -> Routing:
     """The reference's routing of groups ``xg`` (G, M, D), exactly.
 
     The top k come from a stable descending sort, so equal logits go to
     the lower expert first, as ``jax.lax.top_k`` takes them (a zero pad
     row ties all E and goes to experts 0..K-1).  Queue places are
     slot-major: slot j of every token ranks before slot j+1 of any
-    token, and within a slot the earlier token first.
+    token, and within a slot the earlier token first.  ``idx`` (G, M,
+    K), where given, is taken in place of the top k (a check replays
+    another run's choices so), the gates then the softmax of those
+    experts' logits.
     """
     E, K = cfg.n_experts, cfg.experts_per_token
     G, M, _ = xg.shape
     logits = xg.float() @ router.float()  # (G, M, E)
-    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top, order = torch.sort(logits, dim=-1, descending=True, stable=True)
     margin = top[..., K - 1] - top[..., K] if K < E \
         else torch.full((G, M), math.inf, device=xg.device)
-    top, idx = top[..., :K], idx[..., :K]
+    if idx is None:
+        top, idx = top[..., :K], order[..., :K]
+    else:
+        top = logits.gather(-1, idx)
     gates = torch.softmax(top, dim=-1)
     C = max(1, math.ceil(M * K * cfg.capacity_factor / E))
     slots = F.one_hot(idx.transpose(1, 2).reshape(G, K * M), E)  # slot-major
@@ -478,3 +494,141 @@ def mla_attend_absorbed(x, p, cfg, *, c, k_rope, q_pos, kv_pos):
     ctx = _pv(torch.softmax(scores, dim=-1), c, "bhst,btr->bshr")
     out = _einsum("bshr,rhk->bshk", ctx, p["wuv"])  # expand with W_uv
     return _einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------- Mamba ----
+# fp32 leaves of the Mamba block with a rule of their own (the rest of its
+# fp32 leaves, ``conv_b``, start at 0 as the norms do)
+MAMBA_DRAWN = {"conv_w": 0.1, "dt_proj": 0.1}  # N(0, scale), fp32
+DT_BIAS = -4.6  # softplus^-1(0.01)
+
+
+def init_leaf(gen: torch.Generator, path: tuple, spec) -> torch.Tensor:
+    """The reference's init of one parameter leaf (``spec``: its shape
+    and dtype; layer-stacked or not), by the leaf's name: bf16 weights
+    and the fp32 MoE router N(0, 0.02); Mamba's ``conv_w`` and
+    ``dt_proj`` N(0, 0.1), ``A_log`` log(1..N) over the state axis,
+    ``dt_bias`` -4.6 and ``D_skip`` 1; every other fp32 leaf (the norms,
+    which scale by ``1 + w``, and ``conv_b``) 0."""
+    name, shape, dev = path[-1], tuple(spec.shape), gen.device
+    if spec.dtype != torch.float32 or name == "router":
+        return dense_init(gen, shape, dtype=spec.dtype)
+    if name in MAMBA_DRAWN:
+        return dense_init(gen, shape, scale=MAMBA_DRAWN[name],
+                          dtype=torch.float32)
+    if name == "A_log":  # numpy's fp32 log gives the reference's bits
+        a = np.log(np.arange(1, shape[-1] + 1, dtype=np.float32))
+        return torch.from_numpy(a).to(dev).expand(shape).contiguous()
+    if name == "dt_bias":
+        return torch.full(shape, DT_BIAS, device=dev)
+    if name == "D_skip":
+        return torch.ones(shape, device=dev)
+    return torch.zeros(shape, device=dev)
+
+
+def mamba_shapes(cfg) -> dict:
+    """The Mamba-1 block's leaves: the bf16 projections, and in fp32 the
+    depthwise conv, the dt projection and bias, ``A_log`` and the skip."""
+    D, Di, N, K, R = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv,
+                      cfg.dt_rank)
+    return {"in_proj": (D, 2 * Di), "conv_w": (K, Di), "conv_b": (Di,),
+            "x_proj": (Di, R + 2 * N), "dt_proj": (R, Di), "dt_bias": (Di,),
+            "A_log": (Di, N), "D_skip": (Di,), "out_proj": (Di, D)}
+
+
+MAMBA_FP32 = ("conv_w", "conv_b", "dt_proj", "dt_bias", "A_log", "D_skip")
+
+
+def mamba_init(gen, cfg, dtype=torch.bfloat16) -> Params:
+    return {name: init_leaf(gen, (name,), Spec(
+        shape, torch.float32 if name in MAMBA_FP32 else dtype))
+        for name, shape in mamba_shapes(cfg).items()}
+
+
+def _mamba_inputs(x, p, cfg, conv_state=None):
+    """Shared projections.  Returns (x_conv, z, dt, Bp, Cp,
+    new_conv_state).  The causal depthwise conv runs in fp32 over the
+    history in ``x``'s dtype: a decode step's fp32 conv state is rounded
+    to it first, as the reference rounds it."""
+    K = cfg.ssm_conv
+    x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)  # (B, S, Di)
+    if conv_state is None:
+        hist = F.pad(x_in, (0, 0, K - 1, 0))
+    else:
+        hist = torch.cat([conv_state.to(x_in.dtype), x_in], dim=1)
+    new_conv_state = hist[:, hist.shape[1] - (K - 1):].float()
+    xf = hist.float()
+    S = x_in.shape[1]
+    conv = sum(xf[:, j:j + S] * p["conv_w"][j] for j in range(K)) \
+        + p["conv_b"]
+    x_conv = F.silu(conv).to(x.dtype)
+
+    R, N = cfg.dt_rank, cfg.ssm_state
+    dt_r, Bp, Cp = torch.split(x_conv @ p["x_proj"], [R, N, N], dim=-1)
+    dt = F.softplus(dt_r.float() @ p["dt_proj"] + p["dt_bias"])  # fp32
+    return x_conv, z, dt, Bp.float(), Cp.float(), new_conv_state
+
+
+def _scan_chunk(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t over axis 1 (from h = 0):
+    (the products of a, the b part).  Hillis-Steele, log2(c) steps, each
+    the reference's combine ``(l0 r0, r0 l1 + r1)`` of every element with
+    the one ``d`` before it."""
+    d = 1
+    while d < a.shape[1]:
+        b_new = b.clone()
+        b_new[:, d:].addcmul_(a[:, d:], b[:, :-d])
+        a_new = a.clone()
+        a_new[:, d:].mul_(a[:, :-d])
+        a, b = a_new, b_new
+        d *= 2
+    return a, b
+
+
+def mamba_scan(x, p, cfg, h0=None, conv_state=None):
+    """Chunked selective scan.  x: (B, S, D) -> (y, h_final, conv_tail).
+
+    A loop over chunks of ``SSM_CHUNK`` tokens carries the fp32 state
+    ``h`` (B, Di, N); within a chunk a log-step scan runs on the bounded
+    (B, c, Di, N) transient, in ``cfg.ssm_compute_dtype``.  The reference
+    pads the last chunk with zeros after the softplus (a = 1, b = 0: the
+    state holds); here the last chunk is simply shorter, which gives the
+    same state.
+    """
+    B, S, _ = x.shape
+    Di, N = cfg.d_inner, cfg.ssm_state
+    x_conv, z, dt, Bp, Cp, conv_tail = _mamba_inputs(x, p, cfg, conv_state)
+    A = -torch.exp(p["A_log"])  # (Di, N)
+    cdt = torch.bfloat16 if cfg.ssm_compute_dtype == "bf16" \
+        else torch.float32
+    h = torch.zeros((B, Di, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0
+    c = min(SSM_CHUNK, S)
+    ys = []
+    for s0 in range(0, S, c):
+        dtc, xc = dt[:, s0:s0 + c], x_conv[:, s0:s0 + c].float()
+        a = torch.exp(dtc[..., None] * A).to(cdt)  # (B, c, Di, N)
+        b = ((dtc * xc)[..., None] * Bp[:, s0:s0 + c, None, :]).to(cdt)
+        a_sc, b_sc = _scan_chunk(a, b)
+        hs = a_sc * h[:, None].to(cdt) + b_sc
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs.float(),
+                               Cp[:, s0:s0 + c].to(cdt).float()))
+        h = hs[:, -1].float()
+        del a, b, a_sc, b_sc, hs
+    y = torch.cat(ys, dim=1) + p["D_skip"] * x_conv.float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], h, conv_tail
+
+
+def mamba_step(x, p, cfg, h, conv_state):
+    """Single-token decode.  x: (B, 1, D); h: (B, Di, N) fp32;
+    conv_state: (B, K-1, Di) fp32.  Returns (y, h_new, conv_state_new)."""
+    x_conv, z, dt, Bp, Cp, new_conv = _mamba_inputs(x, p, cfg, conv_state)
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt[:, 0, :, None] * A)  # (B, Di, N)
+    b = (dt[:, 0] * x_conv[:, 0].float())[..., None] * Bp[:, 0, None, :]
+    h_new = a * h + b
+    y = torch.einsum("bdn,bn->bd", h_new, Cp[:, 0])[:, None, :]
+    y = y + p["D_skip"] * x_conv.float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], h_new, new_conv

@@ -20,53 +20,16 @@ over the experts, are recomputed).
 
 from __future__ import annotations
 
-import dataclasses
-import functools
-
 import torch
-from torch import nn
-from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
+from repro_torch.models.base import LM
+from repro_torch.models.layers import Spec
 from repro_torch.models.losses import chunked_ce
-from repro_torch.tree import map_with_path, tree_map
 
 
-@dataclasses.dataclass(frozen=True)
-class Spec:
-    """Shape and dtype of one parameter leaf."""
-    shape: tuple
-    dtype: torch.dtype
-
-
-def _save_dots(_ctx, op, *args, **_kw):
-    """Selective-checkpoint policy "dots": keep the outputs of matmuls
-    without batch dims (the projections: ``mm``, and ``bmm`` over a batch
-    of one, which is how ``einsum`` runs them), recompute the rest."""
-    if op == torch.ops.aten.mm.default or (
-            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
-        return ckpt.CheckpointPolicy.MUST_SAVE
-    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
-
-
-class TransformerLM(nn.Module):
-    """Functional over an explicit parameter dict, as the reference is:
-    ``init`` makes the parameters, the other methods take them.
-
-    ``moe_log``: None, or a list that every MoE layer appends its
-    routing of the real tokens to, ``(idx, keep, margin)``
-    (``layers.moe``).
-    """
-
-    def __init__(self, cfg, remat: bool = True,
-                 remat_policy: str | None = None) -> None:
-        super().__init__()
-        if remat_policy not in (None, "nothing", "dots"):
-            raise ValueError(f"unknown remat_policy {remat_policy!r}")
-        self.cfg = cfg
-        self.remat = remat
-        self.remat_policy = remat_policy
-        self.moe_log: list | None = None
+class TransformerLM(LM):
+    """The dense, MoE, MLA and VLM-backbone decoder (``base.LM``)."""
 
     # ------------------------------------------------------------- init ----
     def param_shapes(self) -> dict:
@@ -91,18 +54,9 @@ class TransformerLM(nn.Module):
             shapes["unembed"] = Spec((cfg.vocab_size, D), bf16)
         return shapes
 
-    def init(self, gen: torch.Generator) -> dict:
-        """Parameters on the generator's device: bf16 weights and the fp32
-        MoE router N(0, 0.02), the fp32 norm weights at 0 (the norms scale
-        by ``1 + w``)."""
-        def make(path, spec: Spec):
-            if spec.dtype == torch.float32 and path[-1] != "router":
-                return torch.zeros(spec.shape, dtype=spec.dtype,
-                                   device=gen.device)
-            return L.dense_init(gen, spec.shape, dtype=spec.dtype)
-        params = map_with_path(make, self.param_shapes())
-        layers = params["layers"]
-        layers["attn"] = L.zero_pad_slots(layers["attn"], self.cfg)
+    def _zero_pads(self, params: dict) -> dict:
+        params["layers"]["attn"] = L.zero_pad_slots(params["layers"]["attn"],
+                                                    self.cfg)
         return params
 
     # ------------------------------------------------------------ flags ----
@@ -116,21 +70,12 @@ class TransformerLM(nn.Module):
             out.append(0 if is_global else cfg.sliding_window)
         return out
 
-    @staticmethod
-    def _layer(params, i: int) -> dict:
-        return tree_map(lambda t: t[i], params["layers"])
-
     # ------------------------------------------------------------ embed ----
     def _embed(self, params, tokens, patches=None):
         x = params["embed"][tokens]
         if patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
-
-    def _logits(self, params, x):
-        x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        table = params.get("unembed", params["embed"])
-        return torch.einsum("bsd,vd->bsv", x, table)
 
     # ---------------------------------------------------------- forward ----
     def _ffn(self, x, p):
@@ -166,18 +111,9 @@ class TransformerLM(nn.Module):
         """
         x = self._embed(params, batch["tokens"], batch.get("patches"))
         pos = torch.arange(x.shape[1], device=x.device)
-        remat = self.remat and torch.is_grad_enabled()
-        kw = {}
-        if self.remat_policy == "dots":
-            kw["context_fn"] = functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _save_dots)
         for i, window in enumerate(self._windows()):
-            p = self._layer(params, i)
-            if remat:
-                x = ckpt.checkpoint(self._block, x, p, window, pos,
-                                    use_reentrant=False, **kw)
-            else:
-                x = self._block(x, p, window, pos)
+            x = self._checkpointed(self._block, x, self._layer(params, i),
+                                   window, pos)
         return x
 
     def forward(self, params, batch):

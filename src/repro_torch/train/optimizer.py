@@ -25,7 +25,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.transformer import Spec
+from repro_torch.models.layers import Spec
 from repro_torch.tree import flatten_with_path, map_with_path, tree_map
 
 QBLOCK = 256  # block size for int8 moment quantization

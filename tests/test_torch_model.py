@@ -152,8 +152,8 @@ def test_config_and_param_count_match_reference(reduced_llama):
             flatten_with_path(shapes)] == [
         (jser._path_str(p), tuple(a.shape))
         for p, a in jax.tree_util.tree_flatten_with_path(reduced_llama[3])[0]]
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        get_config("falcon_mamba_7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no_such_arch")
 
 
 def test_weight_carry_is_bit_exact(reduced_llama):

@@ -4,7 +4,7 @@ against the JAX reference on the same inputs.
 
 * The configs equal the reference's field for field, full and
   ``reduced()``; ``param_count`` and ``active_param_count`` equal the
-  reference's for every config the port holds.
+  reference's for every config (all ten ids).
 * ``layers.moe`` on the reference's own cases (``tests/test_layers.py``)
   and on a padded last group under drops (capacity factor 0.05): the
   routing -- experts ``idx`` and ``keep`` -- equals the reference's
@@ -58,7 +58,8 @@ from repro.configs.base import ModelConfig as JConfig
 from repro.configs.base import get_config as jget_config
 from repro.models import api as japi
 from repro.models import layers as JL
-from repro_torch.configs.base import PORTED, SHAPES, ModelConfig, get_config
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ModelConfig,
+                                      get_config)
 from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.train.step import value_and_grad
@@ -125,7 +126,7 @@ def test_configs_equal_the_reference_field_for_field(arch):
         dataclasses.asdict(jget_config(arch).reduced())
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_counts_equal_the_reference(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     for c, j in ((cfg, jcfg), (cfg.reduced(), jcfg.reduced())):
@@ -217,6 +218,77 @@ def test_moe_routing_exact_and_output_matches_reference(case):
         pad = idx.reshape(-1, K)[N:]
         assert (pad == np.arange(K)).all() and keep.reshape(-1, K)[N:].any()
         assert not keep.reshape(-1, K)[:N].all()
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_route_takes_replayed_choices(case):
+    """``moe_route(idx=...)`` with its own top k gives its routing back
+    bit for bit; with other experts it takes them, gated by the softmax
+    of their own logits, each in a queue place of its own."""
+    kw, (b, s) = MOE_CASES[case]
+    _, tcfg = _configs(**kw)
+    gen = torch.Generator().manual_seed(2)
+    M, E = min(tcfg.moe_group_size, b * s), tcfg.n_experts
+    xg = torch.randn((-(-b * s // M), M, 64), generator=gen)
+    router = torch.randn((64, E), generator=gen)
+    r = L.moe_route(xg, router, tcfg)
+    again = L.moe_route(xg, router, tcfg, idx=r.idx)
+    for field in ("idx", "gates", "pos", "keep", "margin"):
+        assert torch.equal(getattr(again, field), getattr(r, field)), field
+    other = (r.idx + 1) % E
+    o = L.moe_route(xg, router, tcfg, idx=other)
+    assert torch.equal(o.idx, other) and torch.equal(o.margin, r.margin)
+    assert torch.equal(o.gates, torch.softmax(
+        (xg @ router).gather(-1, other), dim=-1))
+    place = (o.idx * b * s * tcfg.experts_per_token + o.pos).flatten(1)
+    assert all(len(set(row.tolist())) == row.numel() for row in place)
+
+
+def test_serve_check_replays_the_serves_routing():
+    """``chip_smoke.replayed_routing`` routes a prefill's MoE layers as
+    a serve's log says, also where the log chose other experts than the
+    prefill would, yields the prefill's own routing, and puts
+    ``moe_route`` back after the block."""
+    import chip_smoke
+    cfg = dataclasses.replace(get_config("granite_moe_1b").reduced(),
+                              n_layers=2)
+    model = api.get_model(cfg, remat=False)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 12)))
+    n, P, E = 3, 10, cfg.n_experts
+    model.moe_log = []
+    with torch.no_grad():
+        model.prefill(params, {"tokens": tokens[:, :P]})
+        for i in range(n - 1):
+            model.prefill(params, {"tokens": tokens[:, :P + i + 1]})
+    # the prefill over all P+n-1 positions: (idx, margin) a layer
+    natural = [(idx, margin) for idx, _, margin in model.moe_log[-2:]]
+    # the serve's log: the prompt's routing, then one token a step; the
+    # second step's token at layer 1 sent to other experts
+    serve_log = [(idx[:, :P], None, margin[:, :P])
+                 for idx, margin in natural]
+    for i in range(n - 1):
+        for idx, margin in natural:
+            one = idx[:, P + i:P + i + 1].clone()
+            if i == 1 and idx is natural[1][0]:
+                one = (one + 1) % E
+            serve_log.append((one, None, margin[:, P + i:P + i + 1]))
+    natural = [idx for idx, _ in natural]
+    route = L.moe_route
+    model.moe_log = []
+    with torch.no_grad(), chip_smoke.replayed_routing(
+            serve_log, n, P + n - 1) as own:
+        model.prefill(params, {"tokens": tokens[:, :P + n - 1]})
+    assert L.moe_route is route
+    got = [entry[0] for entry in model.moe_log]
+    assert torch.equal(got[0], natural[0])
+    assert torch.equal(got[1][:, :P + 1], natural[1][:, :P + 1])
+    assert torch.equal(got[1][:, P + 1], (natural[1][:, P + 1] + 1) % E)
+    assert all(torch.equal(o[0], w) for o, w in zip(own, natural))
+    flips = chip_smoke.routing_flips(serve_log, own, P, n)
+    assert flips["routing_pairs"] == 2 * 2 * (n - 1)
+    assert flips["routing_flips"] == 2 and flips["prompt_routing_flips"] == 0
 
 
 # ------------------------------------------------------------------- MLA ---
