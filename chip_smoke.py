@@ -102,16 +102,23 @@ through the entry points a user calls, on the card:
    256, window 512) and internlm2-20b's (48:8 heads, head dim 128).
 
 14. ``train``: llama3.2-1b at full width, cut to 4 of its 16 layers
-   (``TRAIN_LAYERS``), trained through ``Trainer`` with int8 moments at B =
+   (``TRAIN_LAYERS``), trained through ``Trainer(mesh=default_mesh())``
+   (the (1, 1) host mesh over a one-rank nccl group; the state DTensors
+   in the train step's placements) with int8 moments at B =
    8, S = 512 on ``SyntheticCorpus``, random weights from
    ``torch.Generator`` seed 0: steps 1-2, the save of the whole train state
    at step 2 through the trainer's own manager (``engine="kernel"``: K2, K4
    and K1 must launch), then steps 3-8, timed, under
    ``torch.use_deterministic_algorithms``.  Then a crash: a new ``Trainer``
    on the same manager, nodes 0, 2, 4, 6, 8 of every cluster dead,
-   ``restore_or_init`` (K1 must decode); the restored state must equal the
-   step-2 state and step 3 run again the uninterrupted step 3, bit for
-   bit.  The line gives the step times and tokens/s, the trainer's peak
+   ``restore_or_init``, each leaf straight onto its placements
+   (``restore(shardings=)``; K1 must decode); the restored state must
+   equal the step-2 state, placements included, and step 3 run again the
+   uninterrupted step 3, bit for bit, and the restore must make no
+   whole-tree host copy (``HostLeaves``: the deserializer's host leaves
+   alive at once peak under the state's bytes).  The line gives the
+   mesh, the leaves by placement, that peak, the step times and tokens/s,
+   the trainer's peak
    device memory (steps 1-2 and the save, read before the checks keep the
    step-2 and step-3 states), the losses, the save's and the restore's
    seconds, bytes and launches.
@@ -129,7 +136,15 @@ through the entry points a user calls, on the card:
    (``decode_vs_prefill``: 4 x 1024-token prompts, 32 greedy tokens, on
    ``SERVE_SEEDS``, under ``SERVE_CACHE_TOL`` / ``SERVE_LOGIT_TOL``, or
    the config's own gates of ``SERVE_GATES``, each with the shifted
-   control above it).
+   control above it).  Then seed 0's prompts once more through the step
+   builders (``mesh_serve``: ``build_prefill_step`` and
+   ``build_decode_step`` on ``make_host_mesh()``, a ``ShapeConfig`` of
+   prompt + 32 slots and batch 4, the weights wrapped as DTensors without
+   a copy): its tokens, last logits and every cache leaf must equal the
+   plain serve's bit for bit, and each prefill output's shape
+   ``cache_specs``'s (but a VLM's slots and an encoder-decoder's cross
+   length, which the reference's builders give otherwise).  This holds
+   for the config phases 16 and 17 too.
    One line per config: its layers (and the cut), parameters and stored
    bytes, init seconds, the peak of ``max_memory_allocated``, prefill
    and decode tokens/s, the check's readings, and for gemma3-1b the
@@ -1363,19 +1378,73 @@ def serve_phase(sizes: Sizes, device, model, params, sync
     return line, (q, k, v)
 
 
+def leaves_by_placement(tree) -> dict[str, int]:
+    """Count of a tree's leaves by their DTensor placements."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import flatten_with_path
+
+    out: dict[str, int] = {}
+    for _, t in flatten_with_path(tree):
+        key = repr(tuple(t.placements)) if isinstance(t, DTensor) \
+            else "not a DTensor"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+class HostLeaves:
+    """Within the block, the bytes of the host tensors that the
+    checkpoint deserializer makes from the store's blobs (one a leaf,
+    ``serializer._from_record``) that are alive at once: ``peak``, and
+    ``largest``, the largest one.  A restore that kept a whole tree on
+    the host before copying it to the card would peak at the tree's
+    bytes; one that puts each leaf on the card as it comes peaks at
+    about its largest leaf."""
+
+    def __init__(self) -> None:
+        self.now = self.peak = self.largest = 0
+
+    @contextlib.contextmanager
+    def watch(self):
+        import weakref
+        from repro_torch.checkpoint import serializer
+
+        make = serializer._from_record
+
+        def tracked(rec, raw):
+            t = make(rec, raw)
+            n = t.numel() * t.element_size()
+            self.now += n
+            self.peak, self.largest = max(self.peak, self.now), max(
+                self.largest, n)
+            weakref.finalize(t, self._free, n)
+            return t
+        serializer._from_record = tracked
+        try:
+            yield self
+        finally:
+            serializer._from_record = make
+
+    def _free(self, n: int) -> None:
+        self.now -= n
+
+
 def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
-    """Train llama3.2-1b with int8 moments through ``Trainer``, save the
-    step-2 state through the trainer's own SEARS manager (``kernel``
-    engine), crash, kill n-k nodes of every cluster, restore, and run
-    step 3 again: the restored state must equal the saved one and the
-    rerun step the uninterrupted one, bit for bit."""
+    """Train llama3.2-1b with int8 moments through ``Trainer`` on the
+    host mesh (``default_mesh``: (1, 1) on the card), its state DTensors
+    in the train step's placements; save the step-2 state through the
+    trainer's own SEARS manager (``kernel`` engine), crash, kill n-k
+    nodes of every cluster, restore straight onto the placements
+    (``restore(shardings=)``, no whole-tree host copy), and run step 3
+    again: the restored state must equal the saved one and the rerun
+    step the uninterrupted one, bit for bit."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed.sharding import local
     from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import TrainStepConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig, default_mesh
     from repro_torch.tree import flatten_with_path
 
     cfg = get_config("llama32_1b")
@@ -1394,10 +1463,15 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
         return ["/".join(map(str, path)) for (path, x), (_, y) in zip(
             flatten_with_path(a), flatten_with_path(b))
             if x.dtype != y.dtype or x.device != y.device
-            or not torch.equal(x, y)]
+            or getattr(x, "placements", None) != getattr(y, "placements",
+                                                         None)
+            or not torch.equal(local(x), local(y))]
 
     # steps 1-2 and the save at step 2, through Trainer.run
-    tr = Trainer(cfg, dcfg, tcfg, device=device)
+    tr = Trainer(cfg, dcfg, tcfg, mesh=default_mesh(device.type))
+    mesh = {"shape": list(tr.mesh.shape),
+            "dims": list(tr.mesh.mesh_dim_names),
+            "device_type": tr.mesh.device_type}
     marks = {}
 
     def on_step(step, rec):
@@ -1426,7 +1500,7 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
         state, state3 = state2, None
         for step in range(2, 2 + TRAIN_TIMED_STEPS):
             t1 = time.perf_counter()
-            *state, m = tr.step_fn(*state, tr.batch(step))
+            *state, m = tr.sharded_step(*state, tr.batch(step))
             losses.append(float(m["loss"]))  # waits for the step
             step_s.append(time.perf_counter() - t1)
             if state3 is None:
@@ -1437,7 +1511,7 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
 
     # crash: a new trainer on the same manager, n-k nodes of every
     # cluster dead (every systematic piece of half the chunks lost)
-    tr2 = Trainer(cfg, dcfg, tcfg, manager=tr.manager, device=device)
+    tr2 = Trainer(cfg, dcfg, tcfg, mesh=tr.mesh, manager=tr.manager)
     del tr
     gc.collect()
     for cluster in tr2.manager.store.clusters:
@@ -1445,8 +1519,9 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     reset_kernels()
     before = LAUNCHES.snapshot()
     t1 = time.perf_counter()
-    restored, start = tr2.restore_or_init()
-    sync()
+    with HostLeaves().watch() as host:
+        restored, start = tr2.restore_or_init()
+        sync()
     restore_s = time.perf_counter() - t1
     restore_launches = LAUNCHES.delta(before)
     restore_kernels = dict(KERNELS)
@@ -1454,7 +1529,7 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     torch.use_deterministic_algorithms(True)
     try:
         t1 = time.perf_counter()
-        *again, m = tr2.step_fn(*restored, tr2.batch(start))
+        *again, m = tr2.sharded_step(*restored, tr2.batch(start))
         loss3_again = float(m["loss"])
         rerun_s = time.perf_counter() - t1
     finally:
@@ -1462,6 +1537,9 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     rerun_diff = equal(tuple(again), state3)
     nbytes = sum(t.numel() * t.element_size()
                  for _, t in flatten_with_path(state2))
+    placed = {"step_2_state": leaves_by_placement(state2),
+              "restored": leaves_by_placement(restored)}
+    whole_tree_copy = host.peak >= nbytes
     del again, restored, state2, state3
     gc.collect()
     med = statistics.median(step_s[1:])
@@ -1473,12 +1551,19 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
         "saved_all_bytes": ckpt.get("ckpt_bytes") == nbytes,
         "restored_step_2": start == 2,
         "restore_identical": not restore_diff,
-        "rerun_identical": not rerun_diff and loss3_again == loss3}
+        "rerun_identical": not rerun_diff and loss3_again == loss3,
+        "state_on_placements": "not a DTensor" not in placed["step_2_state"]
+        and placed["restored"] == placed["step_2_state"],
+        "no_whole_tree_host_copy": not whole_tree_copy}
     if on_card:
         checks["save_launched_k1_k2_k4"] = min(
             save_kernels[k] for k in ("gf_matmul", "gear_fire", "sha1")) > 0
         checks["restore_decoded_on_k1"] = restore_kernels["gf_matmul"] > 0
     return {"phase": "train", "card": card, "arch": cfg.name,
+            "mesh": mesh, "leaves_by_placement": placed,
+            "restore_host_leaf_peak_bytes": host.peak,
+            "restore_host_leaf_largest_bytes": host.largest,
+            "restore_whole_tree_host_copy": whole_tree_copy,
             "layers": cfg.n_layers, "full_layers": full_layers,
             "params": cfg.param_count(), "batch": B, "seq": S,
             "moment_dtype": "int8", "deterministic": "steps 3 on, rerun",
@@ -1588,6 +1673,95 @@ def cache_bytes(cache: dict) -> dict:
         out[kind] = sum(t.numel() * t.element_size()
                         for name, t in cache.items() if name in names)
     return out
+
+
+def mesh_serve(cfg, params, batch: dict, res: dict, n: int, sync) -> dict:
+    """Serve ``batch`` again through the step builders
+    (``build_prefill_step`` / ``build_decode_step``) on the host mesh,
+    with a ``ShapeConfig`` of ``seq_len`` prompt + n and the batch's
+    rows, to n greedy tokens: the weights wrapped as DTensors without a
+    copy, prefill, then n - 1 decode steps on the cache in place.  The
+    tokens, the last logits and every cache leaf are held bit for bit
+    against the plain serve's ``res``; each prefill output's shape
+    against ``api.cache_specs``, but where the reference's builders give
+    another: a VLM's prefill cache has ``max(seq_len, prompt +
+    patches)`` slots (``cache_len=S`` counts no patches; it is copied
+    into a zeroed cache of the spec's slots before decode), and an
+    encoder-decoder's cross caches are as long as its frames."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import MeshRules, shard_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import prefix_len
+    from repro_torch.models import api
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+    from repro_torch.tree import flatten_with_path
+
+    device = batch["tokens"].device
+    rules = MeshRules(make_host_mesh(device.type))
+    B, P = batch["tokens"].shape
+    Pt = prefix_len(batch)
+    shape = ShapeConfig("mesh_serve", P + n, B, "decode")
+    prefill, (param_sh, batch_sh), _, _ = build_prefill_step(cfg, rules,
+                                                            shape)
+    decode, in_sh, _, cache_shapes = build_decode_step(cfg, rules, shape)
+    dparams = shard_tree(params, param_sh)
+    no_copy = all(
+        d.to_local().untyped_storage().data_ptr()
+        == t.untyped_storage().data_ptr() for (_, d), (_, t) in zip(
+            flatten_with_path(dparams), flatten_with_path(params)))
+    t0 = time.perf_counter()
+    logits, cache = prefill(dparams, shard_tree(batch, batch_sh))
+    tok = torch.argmax(logits.to_local(), -1)[:, None]
+    shapes, wrong = {}, []
+    local = {}
+    for name, t in cache.items():
+        spec = tuple(cache_shapes[name].shape)
+        expect = list(spec)
+        if cfg.n_patches and name in ("k", "v"):
+            expect[2] = max(shape.seq_len, Pt)
+        if name in ("ek", "ev"):
+            expect[2] = batch["frames"].shape[1]
+        shapes[name] = {"prefill": list(t.shape), "spec": list(spec)}
+        if tuple(t.shape) != tuple(expect):
+            wrong.append(name)
+        t = t.to_local()
+        if name in ("k", "v") and tuple(t.shape) != spec:  # the VLM's
+            t = torch.zeros(spec, dtype=t.dtype, device=t.device
+                            ).index_copy_(2, torch.arange(
+                                t.shape[2], device=t.device), t)
+        local[name] = t
+    del cache
+    sync()
+    prefill_s = time.perf_counter() - t0
+    cache = shard_tree(local, in_sh[1])
+    del local
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        logits, cache = decode(dparams, cache, shard_tree(tok, in_sh[2]),
+                               Pt + i)
+        tok = torch.argmax(logits.to_local(), -1)[:, None]
+        out.append(tok)
+    sync()
+    decode_s = time.perf_counter() - t0
+    differ = [name for name in sorted(cache) if not torch.equal(
+        cache[name].to_local(), res["cache"][name])]
+    line = {"mesh": list(rules.mesh.shape), "seq_len": shape.seq_len,
+            "batch": B, "cache_shapes": shapes, "shapes_as_reference":
+            not wrong, "wrong_shapes": wrong, "no_weight_copy": no_copy,
+            "tokens_identical": torch.equal(torch.cat(out, dim=1),
+                                            res["tokens"]),
+            "logits_identical": torch.equal(logits.to_local(),
+                                            res["logits"]),
+            "cache_identical": not differ, "cache_differs": differ,
+            "prefill_seconds": prefill_s, "decode_seconds": decode_s,
+            "decode_tok_per_s": B * (n - 1) / decode_s}
+    line["ok"] = all(line[k] for k in (
+        "shapes_as_reference", "no_weight_copy", "tokens_identical",
+        "logits_identical", "cache_identical"))
+    del cache, dparams
+    return line
 
 
 def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
@@ -1727,6 +1901,8 @@ def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
                 if first is None:
                     first = res["tokens"]
                     line["cache_bytes"] = cache_bytes(res["cache"])
+                    line["mesh_serve"] = mesh_serve(cfg, params, batch, res,
+                                                    n, sync)
                 del r, res
         prefill_s = statistics.median(t[0] for t in times)
         decode_s = statistics.median(t[1] for t in times)
@@ -1734,6 +1910,7 @@ def configs_phase(phase: str, configs, sizes: Sizes, device, fused_engine,
             first.shape == (B, n)
             and ((first >= 0) & (first < cfg.vocab_size)).all())
         checks["decode_vs_prefill"] = all(c["ok"] for c in serve_checks)
+        checks["mesh_serve_identical"] = line["mesh_serve"]["ok"]
         if drops:
             line["dropped_share"] = drops
         line.update(
@@ -2221,8 +2398,13 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(SRC))
     card = nvidia_smi()
-    kern = run(Sizes(), torch.device("cuda"), "kernel", "fused", card,
-               args.log_dir)
+    try:
+        kern = run(Sizes(), torch.device("cuda"), "kernel", "fused", card,
+                   args.log_dir)
+    finally:  # the one-rank group the mesh phases made
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
     # the main path's kernel launch counts count toward 'launches'; the
     # comparison launches above them do not (main_path read them first)
     emit({"kernels": [{k: e[k] for k in (

@@ -10,7 +10,9 @@ SEARS file ``ckpt/<run>/<step:08d>/<leaf-path>``, so the store gives:
 * **(n,k) erasure-coded pieces** -- any n-k storage nodes of a cluster
   can die between save and restore with no data loss;
 * **k-of-n restore reads**, with ULB binding keeping one cluster per run;
-* **elastic restore** -- the manifest holds global shapes only.
+* **elastic restore** -- the manifest holds global shapes only, so a
+  checkpoint written on one mesh restores onto any other
+  (``restore(shardings=)``).
 
 ``save_async`` copies the tree to the host now and serializes and
 uploads it on a background thread.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import serializer
 from repro_torch.core.store import SEARSStore
@@ -29,6 +32,15 @@ from repro_torch.tree import flatten_with_path, tree_map
 
 class CheckpointError(RuntimeError):
     pass
+
+
+def _host_copy(leaf):
+    """A tensor's (a DTensor's whole tensor's) copy on the host."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
+    if torch.is_tensor(leaf):
+        return leaf.detach().to("cpu", copy=True)
+    return leaf
 
 
 class SEARSCheckpointManager:
@@ -72,9 +84,7 @@ class SEARSCheckpointManager:
 
     def save_async(self, step: int, tree, timestamp: float = 0.0):
         """Device->host copy now; chunk/hash/encode/upload in background."""
-        host_tree = tree_map(
-            lambda t: t.detach().to("cpu", copy=True)
-            if torch.is_tensor(t) else t, tree)
+        host_tree = tree_map(_host_copy, tree)
         self.wait()
         t = threading.Thread(target=self.save,
                              args=(step, host_tree, timestamp), daemon=True)
@@ -100,11 +110,13 @@ class SEARSCheckpointManager:
     def latest_step(self) -> int | None:
         return max(self._steps) if self._steps else None
 
-    def restore(self, like, step: int | None = None):
+    def restore(self, like, step: int | None = None, shardings=None):
         """Restore the checkpoint at ``step`` (default: latest complete).
 
         ``like``: tree of tensors giving the structure; each leaf comes
-        back on its ``like`` leaf's device.
+        back on its ``like`` leaf's device.  ``shardings``: optional tree
+        of ``Sharding`` -- each leaf goes straight onto its mesh and
+        placements instead (elastic restore).
         Raises CheckpointError if more than n-k pieces of any chunk are
         gone.
         """
@@ -131,6 +143,7 @@ class SEARSCheckpointManager:
                         f"checkpoint leaf {name} unrecoverable: {e}") from e
                 blobs[name] = blob
                 restore_stats.append(st)
-        tree = serializer.deserialize(manifest_blob.decode(), blobs, like)
+        tree = serializer.deserialize(manifest_blob.decode(), blobs, like,
+                                      shardings=shardings)
         self.last_restore_time = sum(s.time_s for s in restore_stats)
         return tree

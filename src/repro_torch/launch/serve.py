@@ -122,9 +122,11 @@ def main(argv=None) -> None:
         print(f"checkpoint: {saved['bytes']} bytes saved in {t1 - t0:.2f}s,"
               f" restored in {time.perf_counter() - t1:.2f}s")
     batch = prompts(cfg, args.batch, args.prompt_len, 0, device)
+    # --tokens decode steps after the prefill's token, as the reference
+    # runs them, in a cache of prompt + tokens + 1 slots
+    steps = args.tokens
     with torch.no_grad():
-        res = serve(model, params, batch, args.tokens, device)
-    steps = args.tokens - 1
+        res = serve(model, params, batch, steps + 1, device)
     seen = f" after {cfg.n_patches} patches" if cfg.n_patches else \
         f" over {args.prompt_len} frames" if "frames" in batch else ""
     print(f"{cfg.name} on {device}: prefill {args.batch}x{args.prompt_len}"

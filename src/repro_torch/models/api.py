@@ -1,6 +1,6 @@
-"""Uniform model interface of the port: family dispatch, random train
-batches, parameter counts, and the carry of the reference's
-weights and train state into the port.
+"""Uniform model interface of the port: family dispatch, input and
+cache specs, random batches, parameter counts, and the carry of the
+reference's weights and train state into the port.
 
 Port of the JAX reference's ``repro/models/api.py`` for its six model
 families: dense, MoE (with MLA), VLM backbones fed precomputed patch
@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.base import LM
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.layers import Spec
 from repro_torch.models.mamba import MambaLM
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.tree import flatten_with_path, tree_map
@@ -27,31 +28,69 @@ from repro_torch.tree import flatten_with_path, tree_map
 _FAMILIES = {"ssm": MambaLM, "hybrid": HybridLM, "encdec": EncDecLM}
 
 
-def get_model(cfg: ModelConfig, remat: bool = True,
+def get_model(cfg: ModelConfig, remat: bool = True, shard_act=None,
               remat_policy: str | None = None) -> LM:
     """The config's model class: ``MambaLM``, ``HybridLM``, ``EncDecLM``,
     or ``TransformerLM`` for the dense, MoE and VLM families.
-    ``remat_policy``: None or ``"nothing"`` (recompute every layer
-    activation) or ``"dots"`` (keep the matmul outputs)."""
+    ``shard_act``: None, or the activation-sharding hook
+    (``MeshRules.act_sharder()``).  ``remat_policy``: None or
+    ``"nothing"`` (recompute every layer activation) or ``"dots"`` (keep
+    the matmul outputs)."""
     cls = _FAMILIES.get(cfg.family, TransformerLM)
-    return cls(cfg, remat=remat, remat_policy=remat_policy)
+    return cls(cfg, remat=remat, remat_policy=remat_policy,
+               shard_act=shard_act)
+
+
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                batch_override: int | None = None) -> dict:
+    """``Spec`` stand-ins for every model input of this cell: a decode
+    cell's ``{"token": (B, 1)}``, else ``{"tokens": (B, S)}`` int32, for
+    a VLM with ``"patches"`` (B, n_patches, d_model) and for an
+    encoder-decoder with ``"frames"`` (B, S, d_model), both bf16."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    if shape.kind == "decode":
+        return {"token": Spec((B, 1), torch.int32)}
+    specs = {"tokens": Spec((B, S), torch.int32)}
+    if cfg.family == "vlm":
+        specs["patches"] = Spec((B, cfg.n_patches, cfg.d_model),
+                                torch.bfloat16)
+    if cfg.family == "encdec":
+        specs["frames"] = Spec((B, S, cfg.d_model), torch.bfloat16)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig,
+                batch_override: int | None = None) -> dict:
+    """``Spec`` of every leaf of the decode cache of this cell, from the
+    model's ``init_cache`` on the meta device (nothing is allocated):
+    ``seq_len`` slots, plus the prepended patch positions of a VLM; an
+    encoder-decoder's cross caches as long as ``seq_len``."""
+    B = batch_override or shape.global_batch
+    T = shape.seq_len
+    if cfg.family == "vlm":
+        T += cfg.n_patches  # the cache covers the patch positions
+    model = get_model(cfg)
+    kw = {"enc_len": T} if cfg.family == "encdec" else {}
+    cache = model.init_cache(B, T, device="meta", **kw)
+    return tree_map(lambda t: Spec(tuple(t.shape), t.dtype), cache)
 
 
 # ---------------------------------------------------------------------------
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, rng: np.random.Generator,
                batch_override: int | None = None, device="cuda") -> dict:
-    """Random train batch, ``{"tokens": (B, S) int32}``, for a VLM with
+    """Random batch matching ``input_specs``: a decode cell's ``{"token":
+    (B, 1) int32}``; else ``{"tokens": (B, S) int32}``, for a VLM with
     ``"patches"`` (B, n_patches, d_model) and for an encoder-decoder with
     ``"frames"`` (B, S, d_model), both bf16, drawn from ``rng`` as the
     reference draws them (after the tokens, rounded to bf16 through fp32
     as the reference's ``jnp.asarray`` rounds them), so one seed gives
-    both packages the same bits.  Decode shapes come with their port
-    (ROADMAP.md, Queue 1 F)."""
-    if shape.kind == "decode":
-        raise NotImplementedError(
-            "make_batch: decode-shape inputs are not ported (ROADMAP.md, "
-            "Queue 1 F)")
+    both packages the same bits."""
     B, S = batch_override or shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        arr = rng.integers(0, cfg.vocab_size, size=(B, 1))
+        return {"token": torch.from_numpy(arr.astype(np.int32)).to(device)}
     arr = rng.integers(0, cfg.vocab_size, size=(B, S))
     out = {"tokens": torch.from_numpy(arr.astype(np.int32)).to(device)}
     extra = {"vlm": ("patches", cfg.n_patches),

@@ -40,17 +40,21 @@ class LM(nn.Module):
 
     ``moe_log``: None, or a list that every MoE layer appends its
     routing of the real tokens to, ``(idx, keep, margin)``
-    (``layers.moe``).
+    (``layers.moe``).  ``shard_act``: None, or the activation-sharding
+    hook of a distributed run (``MeshRules.act_sharder()``), applied to
+    the (B, S, D) input of every layer of the full-sequence pass, where
+    the reference applies it.
     """
 
     def __init__(self, cfg, remat: bool = True,
-                 remat_policy: str | None = None) -> None:
+                 remat_policy: str | None = None, shard_act=None) -> None:
         super().__init__()
         if remat_policy not in (None, "nothing", "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         self.cfg = cfg
         self.remat = remat
         self.remat_policy = remat_policy
+        self.shard_act = shard_act
         self.moe_log: list | None = None
 
     def param_shapes(self) -> dict:
@@ -66,6 +70,10 @@ class LM(nn.Module):
 
     def _zero_pads(self, params: dict) -> dict:
         return params
+
+    def _act(self, x):
+        """``x`` through the ``shard_act`` hook, where one is given."""
+        return self.shard_act(x) if self.shard_act else x
 
     @staticmethod
     def _layer(params, i: int, stack: str = "layers") -> dict:

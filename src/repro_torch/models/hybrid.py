@@ -110,7 +110,7 @@ class HybridLM(LM):
         return x, (k, v), (torch.stack(hs), torch.stack(convs))
 
     def _group_out(self, x, g, pos):
-        return self._group_fwd(x, g, pos, pos)[0]
+        return self._group_fwd(self._act(x), g, pos, pos)[0]
 
     # ---------------------------------------------------------- forward ----
     def _backbone(self, params, batch):

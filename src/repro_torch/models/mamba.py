@@ -35,6 +35,7 @@ class MambaLM(LM):
         return shapes
 
     def _block(self, x, p):
+        x = self._act(x)
         h = L.rms_norm(x, p["ln"], self.cfg.norm_eps)
         return x + L.mamba_scan(h, p["mixer"], self.cfg)[0]
 

@@ -99,6 +99,7 @@ class TransformerLM(LM):
 
     def _block(self, x, p, window: int, pos):
         """One decoder layer over the full sequence."""
+        x = self._act(x)
         h = L.rms_norm(x, p["ln1"], self.cfg.norm_eps)
         return self._ffn(x + self._attend(h, p, window, pos)[0], p)
 

@@ -1,8 +1,12 @@
-"""Train-step builder: microbatch accumulation + AdamW update.
+"""Sharded train-step builder: microbatch accumulation + AdamW update.
 
 Port of the JAX reference's ``repro/train/step.py``.  ``build_train_step``
 returns the ``(params, opt_state, batch) -> (params, opt_state,
-metrics)`` step the trainer runs, on explicit tensors:
+metrics)`` step on plain tensors, with the in/out shardings of the
+state and the batch (``Sharding`` trees: mesh, DTensor placements,
+spec), as the reference returns the function and the shardings it hands
+``jax.jit``.  The trainer runs it through ``sharding.sharded``: on the
+DTensors' local tensors, on a mesh of one.  The step:
 
 * gradients by autograd (``torch.autograd.grad``) of ``model.loss``,
   with each layer rematerialized under ``remat``;
@@ -12,17 +16,20 @@ metrics)`` step the trainer runs, on explicit tensors:
   accumulator memory);
 * the AdamW update of ``optimizer.apply``.
 
-The reference's shardings (``MeshRules``, the in/out shardings it hands
-``jax.jit``) and donation are not ported: the port runs on one device
-(ROADMAP.md, Queue 1 F).
+The state's shardings are the reference's: the parameters by
+``MeshRules``, the optimizer state ZeRO-1 over the data plane
+(``opt_state_shardings``), the batch over the data plane.  Donation is
+not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import MeshRules, P, Sharding
 from repro_torch.models import api
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import flatten_with_path, map_with_path, tree_map
@@ -50,17 +57,23 @@ def value_and_grad(model, params, batch) -> tuple[torch.Tensor, dict]:
     return loss.detach(), map_with_path(lambda path, _: by_path[path], params)
 
 
-def _split_microbatches(batch: dict, n: int) -> list[dict]:
-    """(B, ...) -> n batches of (B/n, ...), in row order."""
+def _split_microbatches(batch: dict, n: int, rules: MeshRules
+                        ) -> list[dict]:
+    """(B, ...) -> n batches of (B/n, ...), in row order.  ``rules`` as
+    the reference's, which pins each microbatch to the data plane; the
+    port splits the local batch, which needs no pin."""
+    del rules
     return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
              for k, v in batch.items()} for i in range(n)]
 
 
-def build_train_step(cfg, tcfg: TrainStepConfig, device):
-    """Returns the step ``(params, opt_state, batch) -> (params,
-    opt_state, metrics)`` for params on ``device`` (where the microbatch
-    accumulators live)."""
+def build_train_step(cfg, rules: MeshRules, tcfg: TrainStepConfig):
+    """Returns (step_fn, in_shardings, out_shardings, param_shapes,
+    opt_shapes).  ``step_fn`` takes plain tensors on the mesh's device
+    (where the microbatch accumulators live)."""
+    device = torch.device(rules.mesh.device_type)
     model = api.get_model(cfg, remat=tcfg.remat,
+                          shard_act=rules.act_sharder(),
                           remat_policy=tcfg.remat_policy)
     acfg = tcfg.adamw
 
@@ -74,7 +87,7 @@ def build_train_step(cfg, tcfg: TrainStepConfig, device):
             if tcfg.int8_grad_accum:
                 acc = tree_map(opt._quantize, acc)
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-            for mb in _split_microbatches(batch, nmb):
+            for mb in _split_microbatches(batch, nmb, rules):
                 l, g = value_and_grad(model, params, mb)
                 with torch.no_grad():
                     if tcfg.int8_grad_accum:
@@ -104,4 +117,88 @@ def build_train_step(cfg, tcfg: TrainStepConfig, device):
                    "step": new_opt["step"]}
         return new_params, new_opt, metrics
 
-    return step_fn
+    # ---------------- shardings ----------------
+    param_shapes = model.param_shapes()
+    param_sh = rules.params_shardings(param_shapes)
+    opt_shapes = opt.state_shapes(param_shapes, acfg)
+    opt_sh = opt_state_shardings(rules, param_shapes, opt_shapes)
+    batch_sh = batch_shardings(cfg, rules)
+    scalar = Sharding.of(rules.mesh, P())
+    metrics_sh = {"loss": scalar, "grad_norm": scalar, "step": scalar}
+    in_shardings = (param_sh, opt_sh, batch_sh)
+    out_shardings = (param_sh, opt_sh, metrics_sh)
+    return step_fn, in_shardings, out_shardings, param_shapes, opt_shapes
+
+
+# ---------------------------------------------------------------------------
+def batch_shardings(cfg, rules: MeshRules) -> dict:
+    """Batch leaves shard over the data plane on dim 0."""
+    def mk(ndim):
+        return Sharding.of(rules.mesh,
+                           P(rules.data_axis(), *(None,) * (ndim - 1)))
+    out = {"tokens": mk(2)}
+    if cfg.family == "vlm":
+        out["patches"] = mk(3)
+    if cfg.family == "encdec":
+        out["frames"] = mk(3)
+    return out
+
+
+def opt_state_shardings(rules: MeshRules, param_shapes, opt_shapes) -> dict:
+    """Mirror param specs onto master/m/v (incl. int8 q/scale leaves).
+
+    With ``rules.zero1`` the optimizer state is additionally sharded over
+    the data plane (ZeRO-1): on the biggest free dim that divides it,
+    unless the parameter's spec already uses the data plane.
+    """
+    param_specs = rules.params_pspecs(param_shapes)
+    if rules.zero1:
+        dsize, daxis = rules.data_size(), rules.data_axis()
+
+        def zero1(path, spec):
+            shape = tuple(opt._at(param_shapes, path).shape)
+            entries = list(spec) + [None] * (len(shape) - len(spec))
+            used = set()
+            for e in entries:
+                if e is not None:
+                    used.update(e if isinstance(e, tuple) else (e,))
+            if used & set(rules.data_axes):
+                return P(*entries)  # data plane already in use
+            cands = [i for i, s in enumerate(entries) if s is None
+                     and shape[i] >= dsize and shape[i] % dsize == 0]
+            if cands:
+                entries[max(cands, key=lambda j: shape[j])] = daxis
+            return P(*entries)
+        param_specs = map_with_path(zero1, param_specs)
+    return {"step": Sharding.of(rules.mesh, P()),
+            **{name: spec_for_tree(param_specs, opt_shapes[name], rules)
+               for name in ("master", "m", "v")}}
+
+
+def spec_for_tree(param_specs, sub_shapes, rules: MeshRules):
+    """The tree of ``Sharding`` of an optimizer subtree (master, m or v)
+    whose leaf at each parameter's path is a ``Spec`` or an int8
+    ``{"q", "scale"}`` pair: the parameter's spec fitted to each."""
+    def fit(path, spec):
+        leaf = opt._at(sub_shapes, path)
+        if isinstance(leaf, dict) and "q" in leaf:
+            return {name: Sharding.of(rules.mesh,
+                                      _fit(spec, leaf[name].shape, rules))
+                    for name in ("q", "scale")}
+        return Sharding.of(rules.mesh, _fit(spec, leaf.shape, rules))
+    return map_with_path(fit, param_specs)
+
+
+def _fit(spec: P, shape, rules: MeshRules) -> P:
+    """Clip a spec to a (possibly different-rank) shape, dropping axes
+    that no longer divide."""
+    entries = (list(spec) + [None] * (len(shape) - len(spec)))[:len(shape)]
+    out = []
+    for dim, s in zip(shape, entries):
+        if s is None:
+            out.append(None)
+            continue
+        axes = s if isinstance(s, tuple) else (s,)
+        size = int(np.prod([rules.axis_size(a) for a in axes]))
+        out.append(s if dim >= size and dim % size == 0 else None)
+    return P(*out)

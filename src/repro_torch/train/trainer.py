@@ -7,12 +7,17 @@ complete checkpoint automatically: a crashed run re-executes from the
 last saved step and reproduces the same stream (the step index is part
 of the checkpoint through ``opt_state["step"]``).
 
-It runs on the CUDA device unless the caller passes ``device="cpu"``,
-and raises without CUDA otherwise.  The default manager's store is the
-reference's, on the engine of ``store_engine``: the CUDA kernels
-(``engine="kernel"``) on the card, the host's ``"numpy"`` engine on the
-CPU.  The reference's mesh and shardings are not ported (ROADMAP.md,
-Queue 1 F).
+The train step is sharded by ``MeshRules`` over the trainer's mesh, as
+the reference's: the state lives as DTensors in the step's in-placements
+(``init_state``), a restore puts each leaf straight onto them
+(``restore(shardings=)``), and the step runs through
+``sharding.sharded`` (the twin of the reference's ``jax.jit`` with
+shardings), which computes on a mesh of one device.  The mesh defaults
+to ``default_mesh(device)``: the CUDA device unless the caller passes
+``device="cpu"``; it raises without CUDA otherwise.  The default
+manager's store is the reference's, on the engine of ``store_engine``:
+the CUDA kernels (``engine="kernel"``) on the card, the host's
+``"numpy"`` engine on the CPU.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ import torch
 
 from repro_torch.checkpoint.manager import SEARSCheckpointManager
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+from repro_torch.distributed.sharding import MeshRules, shard_tree, sharded
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import api
 from repro_torch.train import optimizer as opt
 from repro_torch.train.step import TrainStepConfig, build_train_step
-from repro_torch.tree import tree_map
 
 
 def store_engine(device: torch.device) -> str:
@@ -47,51 +53,60 @@ class TrainerConfig:
     async_checkpoint: bool = False
 
 
+def default_mesh(device="cuda"):
+    """This host's devices as a (n, 1) ``("data", "model")`` mesh on
+    ``device`` (``launch.mesh.make_host_mesh``)."""
+    return make_host_mesh(device)
+
+
 class Trainer:
     def __init__(self, model_cfg, data_cfg: DataConfig,
-                 tcfg: TrainerConfig | None = None,
+                 tcfg: TrainerConfig | None = None, mesh=None,
                  manager: SEARSCheckpointManager | None = None,
                  corpus=None, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Trainer runs on the CUDA device and CUDA is not "
-                "available; pass device='cpu' to train on the host")
         self.model_cfg = model_cfg
         self.tcfg = tcfg or TrainerConfig()
+        self.mesh = mesh or default_mesh(device)
+        self.device = torch.device(self.mesh.device_type)
+        self.rules = MeshRules(self.mesh)
         self.data = corpus or SyntheticCorpus(data_cfg)
         self.manager = manager or SEARSCheckpointManager(
             node_capacity=1 << 30, engine=store_engine(self.device))
 
-        scfg = self.tcfg.step_cfg
-        self.step_fn = build_train_step(model_cfg, scfg, self.device)
-        self.param_shapes = api.get_model(model_cfg).param_shapes()
-        self.opt_shapes = opt.state_shapes(self.param_shapes, scfg.adamw)
+        (self.step_fn, self.in_sh, self.out_sh, self.param_shapes,
+         self.opt_shapes) = build_train_step(model_cfg, self.rules,
+                                             self.tcfg.step_cfg)
+        self.sharded_step = sharded(self.step_fn, self.out_sh, self.mesh)
         self.metrics: list[dict[str, float]] = []
 
     # ------------------------------------------------------------------
     def init_state(self):
+        """Params and optimizer state from the seed, laid out on the
+        step's in-placements."""
         model = api.get_model(self.model_cfg,
                               remat=self.tcfg.step_cfg.remat)
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = model.init(gen)
-        return params, opt.init(params, self.tcfg.step_cfg.adamw)
+        opt_state = opt.init(params, self.tcfg.step_cfg.adamw)
+        return (shard_tree(params, self.in_sh[0]),
+                shard_tree(opt_state, self.in_sh[1]))
 
     def restore_or_init(self):
         latest = self.manager.latest_step()
         if latest is None:
             return self.init_state(), 0
-        # leaves of ``Spec`` restore on the host, each at its manifest's
-        # dtype; then one copy to the device
-        like = {"params": self.param_shapes, "opt": self.opt_shapes}
-        tree = tree_map(lambda t: t.to(self.device),
-                        self.manager.restore(like))
+        # each leaf from its bytes straight onto its placements
+        state_like = {"params": self.param_shapes, "opt": self.opt_shapes}
+        shardings = {"params": self.in_sh[0], "opt": self.in_sh[1]}
+        tree = self.manager.restore(state_like, shardings=shardings)
         return (tree["params"], tree["opt"]), latest
 
-    def batch(self, step: int) -> dict[str, torch.Tensor]:
-        """The data pipeline's batch of ``step``, on the device."""
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.data.batch(step).items()}
+    def batch(self, step: int) -> dict:
+        """The data pipeline's batch of ``step``, on the batch's
+        placements."""
+        return shard_tree({k: torch.from_numpy(v).to(self.device)
+                           for k, v in self.data.batch(step).items()},
+                          self.in_sh[2])
 
     # ------------------------------------------------------------------
     def run(self, on_step: Callable[[int, dict], None] | None = None
@@ -99,7 +114,7 @@ class Trainer:
         (params, opt_state), start = self.restore_or_init()
         t0 = time.time()
         for step in range(start, self.tcfg.total_steps):
-            params, opt_state, metrics = self.step_fn(
+            params, opt_state, metrics = self.sharded_step(
                 params, opt_state, self.batch(step))
             if (step + 1) % self.tcfg.log_every == 0:
                 rec = {"step": step + 1,

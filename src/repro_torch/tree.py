@@ -39,3 +39,10 @@ def map_with_path(fn: Callable[[tuple, Any], Any], tree: Any,
         return type(tree)(map_with_path(fn, sub, prefix + (i,))
                           for i, sub in enumerate(tree))
     return fn(prefix, tree)
+
+
+def at(tree: Any, path: tuple) -> Any:
+    """The subtree (or leaf) of ``tree`` at ``path``."""
+    for key in path:
+        tree = tree[key]
+    return tree

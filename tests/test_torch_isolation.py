@@ -62,7 +62,10 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                      "repro_torch.data.pipeline",
                      "repro_torch.train.trainer",
                      "repro_torch.launch.train",
-                     "repro_torch.core.radmad"):
+                     "repro_torch.core.radmad",
+                     "repro_torch.distributed.sharding",
+                     "repro_torch.serve.step",
+                     "repro_torch.launch.mesh"):
             assert name in sys.modules, name
         print("imported", len([m for m in sys.modules
                                if m.startswith("repro_torch")]))

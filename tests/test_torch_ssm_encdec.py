@@ -34,7 +34,9 @@ and whisper-tiny -- against the JAX reference on the same inputs.
   no batch row would keep its state clear of a flip.  In fp32 no top-k
   set flipped at the smallest margin seen, 4.7e-5; a position within
   ``ROUTE_TIE`` of a tie is left out all the same, and with it the state
-  of its batch row.
+  of its batch row.  jamba in bf16 is held with the reference's own
+  routing replayed into the port (``moe_route(idx=...)``), under the
+  bf16 bounds of the other configs.
 * One loss and its gradients for reduced falcon-mamba against
   ``jax.value_and_grad``, under ``tests/test_torch_train.py``'s fp32
   bounds (weights cast to fp32); the batch shifted by one token must fail
@@ -361,6 +363,102 @@ def test_prefill_and_decode_match_reference(reduced):
                                                                   layer)
     for name in cross:  # decode leaves them as prefill wrote them
         assert torch.equal(tcache[name], cross[name])
+
+
+def test_bf16_hybrid_with_the_reference_routing_replayed():
+    """jamba in bf16, its weights as drawn: each MoE layer's top-k sets
+    in the reference (``jax.lax.top_k``, wrapped for the test with a
+    ``jax.debug.callback`` that hands them out as they are computed) are
+    replayed into the port through ``layers.moe_route(idx=...)``; no near
+    tie can then route the two packages apart.  Prefill and 3 decode steps: logits
+    within ``LOGIT_TOL`` of their largest value, the slot caches within
+    ``CACHE_TOL``, the SSM state within ``CACHE_TOL`` of each layer's
+    largest |value| (the bf16 bounds of the other configs, stated before
+    the first run).  Controls that must fail the same bounds: the last
+    step's state and logits against the reference's one step earlier.
+    Readings: logits at most 0.0126, the state 0.0116 (``h``) and 0.0117
+    (``conv``), the slot caches 0; the controls 1.41 and 0.48."""
+    jcfg = _reduced_config(jget_config("jamba_15_large").reduced())
+    jmodel = japi.get_model(jcfg, remat=False)
+    own = _host(jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+    tcfg = _reduced_config(get_config("jamba_15_large").reduced())
+    tmodel = api.get_model(tcfg, remat=False)
+    rng = np.random.default_rng(7)
+    S, T = 24, 24 + STEPS
+    toks = rng.integers(0, tcfg.vocab_size, size=(B, S))
+    feed = rng.integers(0, tcfg.vocab_size, size=(STEPS, B, 1))
+
+    chosen, top_k = [], jax.lax.top_k
+
+    def recorded(x, k):  # each top-k set, in the order the layers run
+        vals, idx = top_k(x, k)
+        jax.debug.callback(lambda i: chosen.append(np.asarray(i)), idx,
+                           ordered=True)
+        return vals, idx
+    jparams = jax.tree.map(jnp.asarray, own)
+    jouts = []
+    jax.lax.top_k = recorded
+    try:
+        jlog, jcache = jax.jit(lambda p, b: jmodel.prefill(
+            p, b, cache_len=T))(jparams,
+                                {"tokens": jnp.asarray(toks, jnp.int32)})
+        jouts.append((_np(jlog), jax.tree.map(_np, jcache)))
+        decode = jax.jit(jmodel.decode_step)
+        for i in range(STEPS):
+            jlog, jcache = decode(jparams, jcache,
+                                  jnp.asarray(feed[i], jnp.int32),
+                                  jnp.int32(S + i))
+            jouts.append((_np(jlog), jax.tree.map(_np, jcache)))
+        jax.effects_barrier()
+    finally:
+        jax.lax.top_k = top_k
+    n_moe = len(chosen) // (1 + STEPS)
+    assert n_moe == 4 and len(chosen) == n_moe * (1 + STEPS)
+
+    route, replayed = L.moe_route, []
+
+    def replay(xg, router, cfg, idx=None):
+        want = torch.from_numpy(chosen[len(replayed)].astype(np.int64))
+        assert idx is None and want.shape == (*xg.shape[:2],
+                                              cfg.experts_per_token)
+        replayed.append(want)
+        return route(xg, router, cfg, idx=want)
+    tparams = api.params_from_numpy(own, "cpu")
+    touts = []
+    L.moe_route = replay
+    try:
+        with torch.no_grad():
+            tlog, tcache = tmodel.prefill(
+                tparams, {"tokens": torch.from_numpy(toks)}, cache_len=T)
+            touts.append((tlog.float().numpy(), {
+                k: v.float().clone().numpy() for k, v in tcache.items()}))
+            for i in range(STEPS):
+                tlog, tcache = tmodel.decode_step(
+                    tparams, tcache, torch.from_numpy(feed[i]), S + i)
+                touts.append((tlog.float().numpy(), {
+                    k: v.float().clone().numpy() for k, v in tcache.items()}))
+    finally:
+        L.moe_route = route
+    assert len(replayed) == len(chosen)
+
+    def logit_err(got, want):
+        return np.abs(got - want).max() / np.abs(want).max()
+
+    def state_err(got, want):  # per layer, of its largest |value|
+        got, want = got.reshape(-1, *got.shape[-3:]), \
+            want.reshape(-1, *want.shape[-3:])
+        return max(np.abs(g - w).max() / np.abs(w).max()
+                   for g, w in zip(got, want))
+    for (tl, tc), (jl, jc) in zip(touts, jouts):
+        assert logit_err(tl, jl) <= LOGIT_TOL
+        for name in SLOT:
+            np.testing.assert_allclose(tc[name], jc[name], rtol=CACHE_TOL,
+                                       atol=CACHE_TOL)
+        for name in STATE:
+            assert state_err(tc[name], jc[name]) <= CACHE_TOL, name
+    # the controls: one step off must fail the bounds
+    assert logit_err(touts[-1][0], jouts[-2][0]) > LOGIT_TOL
+    assert state_err(touts[-1][1]["h"], jouts[-2][1]["h"]) > CACHE_TOL
 
 
 # ---------------------------------------------------- loss and gradients ---

@@ -72,7 +72,9 @@ from repro_torch.configs.base import SHAPES, get_config
 from repro_torch.core.store import SEARSStore
 from repro_torch.core.workload import WorkloadConfig, generate_events
 from repro_torch.data import pipeline as tdata
+from repro_torch.distributed.sharding import MeshRules
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import api
 from repro_torch.train import optimizer as topt
 from repro_torch.train.step import TrainStepConfig, build_train_step, \
@@ -282,9 +284,9 @@ def test_remat_changes_no_bit():
     cfg = get_config("llama32_1b").reduced()
     params, opt_state = _state()
     batch = _batch(B=2, S=16)
-    outs = [build_train_step(cfg, TrainStepConfig(remat=remat,
-                                                  remat_policy=policy),
-                             "cpu")(params, opt_state, batch)
+    rules = MeshRules(make_host_mesh("cpu"))
+    outs = [build_train_step(cfg, rules, TrainStepConfig(
+        remat=remat, remat_policy=policy))[0](params, opt_state, batch)
             for remat, policy in ((False, "nothing"), (True, "nothing"),
                                   (True, "dots"))]
     for other in outs[1:]:
@@ -298,11 +300,12 @@ def test_microbatches_match_one_batch(int8_grad_accum):
     cfg = get_config("llama32_1b").reduced()
     params, opt_state = _state()
     batch = _batch()
-    one = build_train_step(cfg, TrainStepConfig(remat=False), "cpu")(
+    rules = MeshRules(make_host_mesh("cpu"))
+    one = build_train_step(cfg, rules, TrainStepConfig(remat=False))[0](
         params, opt_state, batch)
-    two = build_train_step(cfg, TrainStepConfig(
-        remat=False, microbatches=2, int8_grad_accum=int8_grad_accum),
-        "cpu")(params, opt_state, batch)
+    two = build_train_step(cfg, rules, TrainStepConfig(
+        remat=False, microbatches=2, int8_grad_accum=int8_grad_accum))[0](
+        params, opt_state, batch)
     np.testing.assert_allclose(float(two[2]["loss"]), float(one[2]["loss"]),
                                rtol=2e-2)
     np.testing.assert_allclose(float(two[2]["grad_norm"]),
@@ -384,9 +387,11 @@ def test_files_and_checkpoints_survive_failures_in_one_store():
     out, _ = store.get_file(events[0].user, events[0].filename)
     assert out == events[0].data
     state = mgr.restore({"params": tr.param_shapes, "opt": tr.opt_shapes})
+    # the trainer's state is DTensors on its mesh; restored without
+    # shardings, the leaves are whole tensors
     for (path, a), (_, b) in zip(flatten_with_path(state["params"]),
                                  flatten_with_path(params_before)):
-        assert a.dtype == b.dtype and torch.equal(a, b), path
+        assert a.dtype == b.dtype and torch.equal(a, b.full_tensor()), path
     assert int(state["opt"]["step"]) == 4
     assert store.stats().dedup_ratio > 0.3
 
