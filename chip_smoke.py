@@ -192,6 +192,29 @@ through the entry points a user calls, on the card:
    ``shared_expert_draw``.  The ``kernels`` line then gives, for each
    kernel, its launches in the checkpoints of ``train``, gemma3-1b,
    granite-moe-1b and whisper-tiny (``checkpoint_launches``).
+18. ``roofline``: every step the phases above timed -- the train step
+   and each served config's prefill and one decode step at the cache
+   length its serve reached (21 steps) -- counted by
+   ``repro_torch.launch.analysis.analyze_step`` on fake ``cuda`` tensors
+   at exactly the shapes it ran (dots' FLOPs, every op's bytes), off any
+   timed window, and set beside the time its phase measured: the
+   compute term (FLOPs at 989 TFLOP/s bf16), the memory term (bytes at
+   3.35 TB/s), ``bound_share`` (the larger over the measured time) and
+   ``mfu`` (6 or 2 N D over the measured time at the peak).  No compute
+   term may exceed its measured time by over 5%
+   (``ROOFLINE_COMPUTE_SLACK``), and llama3.2-1b's prefill, run once for
+   real on the card under the counter, must count the fake trace's
+   FLOPs exactly.  One line per step, then one with the checks.
+19. ``examples``: ``examples/torch_*.py`` run on the card as
+   subprocesses, all four together (``EXAMPLES``); each must exit 0.
+20. ``dryrun``: ``python -m repro_torch.launch.dryrun`` in subprocesses
+   (``DRYRUN_RUNS``: llama3.2-1b at ``train_4k`` and every config at
+   ``decode_32k``, each on the 16x16 and 2x16x16 meshes, fake ``cuda``
+   tensors), started before phase 18 and traced on the host's CPU
+   while phases 18-19 run: their fake 512-rank process group cannot
+   share this process with the mesh phases' one-rank group.  One line
+   with each cell's resident GB per chip, roofline terms and trace
+   seconds; every cell must trace, its collective term unknown.
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
@@ -217,9 +240,11 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -349,6 +374,21 @@ SSM_ENCDEC_CONFIGS = (("whisper_tiny", None), ("falcon_mamba_7b", None),
 SHARED_EXPERT_DRAW = ("jamba_15_large",)
 # nodes killed in every cluster before a degraded restore: n - k of (10,5)
 KILLED_NODES = (0, 2, 4, 6, 8)
+# The roofline phase: a step's compute term (its dots at the card's bf16
+# peak) may exceed the time the phase measured by this factor at most.
+ROOFLINE_COMPUTE_SLACK = 1.05
+# The dryrun phase's subprocesses: (name, --arch, --shape), "*" for every
+# arch of ARCH_IDS; each on both meshes.  Their traces run on the host's
+# CPU beside the roofline and examples phases.
+DRYRUN_RUNS = (("train", "llama32_1b", "train_4k"),
+               ("decode", "*", "decode_32k"))
+DRYRUN_TIMEOUT_S = 600
+# The examples phase: (example, arguments), run on the card together.
+EXAMPLES = (("torch_quickstart", ()), ("torch_serve_lm", ()),
+            ("torch_train_lm", ("--tiny", "--steps", "20", "--ckpt-every",
+                                "10", "--crash-at", "10")),
+            ("torch_checkpoint_restore", ()))
+EXAMPLES_TIMEOUT_S = 300
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1428,6 +1468,18 @@ class HostLeaves:
         self.now -= n
 
 
+def train_config(sizes: Sizes):
+    """The train phase's model config (llama3.2-1b at ``TRAIN_LAYERS``, or
+    reduced) and step config (int8 moments)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig
+    cfg = get_config("llama32_1b")
+    cfg = cfg.reduced() if sizes.reduced else dataclasses.replace(
+        cfg, n_layers=TRAIN_LAYERS)
+    return cfg, TrainStepConfig(adamw=AdamWConfig(moment_dtype="int8"))
+
+
 def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     """Train llama3.2-1b with int8 moments through ``Trainer`` on the
     host mesh (``default_mesh``: (1, 1) on the card), its state DTensors
@@ -1442,19 +1494,14 @@ def train_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.distributed.sharding import local
     from repro_torch.kernels.launches import KERNELS, LAUNCHES, reset_kernels
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.step import TrainStepConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig, default_mesh
     from repro_torch.tree import flatten_with_path
 
-    cfg = get_config("llama32_1b")
-    full_layers = cfg.n_layers
-    cfg = cfg.reduced() if sizes.reduced else dataclasses.replace(
-        cfg, n_layers=TRAIN_LAYERS)
+    full_layers = get_config("llama32_1b").n_layers
+    cfg, step_cfg = train_config(sizes)
     B, S = sizes.train_batch, sizes.train_seq
     dcfg = DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size)
-    tcfg = TrainerConfig(total_steps=2, ckpt_every=2, step_cfg=TrainStepConfig(
-        adamw=AdamWConfig(moment_dtype="int8")))
+    tcfg = TrainerConfig(total_steps=2, ckpt_every=2, step_cfg=step_cfg)
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -2265,6 +2312,253 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
 
 
 # ------------------------------------------------------------------ run --
+def served_configs(sizes: Sizes) -> list[tuple[str, object]]:
+    """(arch, config) of every served config, in the order the phases
+    served them: llama3.2-1b (``serve``), then ``DENSE_CONFIGS``,
+    ``MOE_MLA_CONFIGS`` and ``SSM_ENCDEC_CONFIGS`` with their depth cuts
+    (reduced configs in a rehearsal)."""
+    from repro_torch.configs.base import get_config
+    out = []
+    for arch, depth in (("llama32_1b", None),) + DENSE_CONFIGS \
+            + MOE_MLA_CONFIGS + SSM_ENCDEC_CONFIGS:
+        cfg = get_config(arch)
+        if sizes.reduced:
+            cfg = cfg.reduced()
+        elif depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        out.append((arch, cfg))
+    return out
+
+
+def roofline_phase(sizes: Sizes, device, serve_line: dict,
+                   train_line: dict, config_lines: list[dict], sync,
+                   card: str = "") -> list[dict]:
+    """The roofline of every step the earlier phases timed: the train
+    step, and each served config's prefill (the serve batch and prompt,
+    plus its patches or frames) and one decode step at the cache length
+    the serve reaches.  Each is counted by ``analysis.analyze_step`` on
+    fake tensors of ``device`` at exactly the shapes the phase ran (off
+    any timed window) and set beside the time the phase measured (the
+    train step's median; a config's median prefill over the seeds, its
+    median decode over the seeds per step; llama3.2-1b's seed-0 serve).
+    The compute term may not exceed the measured time by over 5%
+    (``ROOFLINE_COMPUTE_SLACK``): a step faster than its dots at the
+    card's peak means the counter or the peak is wrong.  And llama3.2-1b's
+    prefill, run once for real on ``device`` (weights from seed 0) under
+    the counter, must count exactly the fake trace's FLOPs.  Returns one
+    line per step, then a line with the checks."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch import analysis
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import prefix_len, prompts
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import build_train_step
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
+
+    def fake(specs):
+        return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                              device=device), specs)
+
+    def line(step, cfg, kind, batch, seq, stats, measured, trace_s):
+        roof = analysis.Roofline(
+            stats.flops, stats.bytes_traffic, None, 1, analysis.model_flops(
+                cfg, ShapeConfig(step, seq, batch, kind)))
+        return {"phase": "roofline", "card": card, "step": step,
+                "arch": cfg.name, "kind": kind, "layers": cfg.n_layers,
+                "batch": batch, "seq": seq, "flops": stats.flops,
+                "bytes": stats.bytes_traffic,
+                "model_flops": roof.model_flops,
+                "t_compute_s": roof.t_compute, "t_memory_s": roof.t_memory,
+                "bottleneck": roof.bottleneck, "measured_s": measured,
+                "bound_share": roof.t_bound / measured,
+                "compute_share": roof.t_compute / measured,
+                "mfu": roof.model_flops / (measured * analysis.PEAK_FLOPS),
+                "trace_s": trace_s}
+
+    # the train step, as the train phase built it
+    cfg, step_cfg = train_config(sizes)
+    Bt, St = sizes.train_batch, sizes.train_seq
+    step = build_train_step(cfg, MeshRules(make_host_mesh(device.type)),
+                            step_cfg)[0]
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        shapes = step.model.param_shapes()
+        stats = analysis.analyze_step(
+            step, fake(shapes), fake(opt.state_shapes(shapes,
+                                                      step_cfg.adamw)),
+            {"tokens": torch.empty((Bt, St), dtype=torch.int32,
+                                   device=device)})
+    lines = [line(f"{cfg.name} train", cfg, "train", Bt, St, stats,
+                  train_line["step_seconds_median"],
+                  time.perf_counter() - t0)]
+
+    # each served config: the serve's prefill, then its last decode step
+    timed = [serve_line] + config_lines
+    for (arch, cfg), timed_line in zip(served_configs(sizes), timed):
+        model = api.get_model(cfg)
+        prefill_s = statistics.median(
+            numbers(timed_line["prefill_seconds"]))
+        decode_s = statistics.median(
+            numbers(timed_line["decode_seconds"])) / (n - 1)
+        out = {}
+        t0 = time.perf_counter()
+        with FakeTensorMode(), torch.no_grad():
+            params = fake(model.param_shapes())
+            batch = prompts(cfg, B, P, 0, device)
+            Pf = prefix_len(batch)
+            pre = analysis.analyze_step(lambda: out.setdefault(
+                "r", model.prefill(params, batch, cache_len=Pf + n)))
+            logits, cache = out.pop("r")
+            tok = torch.argmax(logits, -1)[:, None]
+            dec = analysis.analyze_step(model.decode_step, params, cache,
+                                        tok, Pf + n - 2)
+        trace_s = time.perf_counter() - t0
+        lines.append(line(f"{cfg.name} prefill", cfg, "prefill", B, Pf, pre,
+                          prefill_s, trace_s))
+        lines.append(line(f"{cfg.name} decode", cfg, "decode", B, Pf + n,
+                          dec, decode_s, None))
+        if arch == "llama32_1b":
+            fake_prefill_flops = pre.flops
+            real_cfg, real_batch = cfg, batch
+        del params, batch, cache, logits, tok
+
+    # llama3.2-1b's prefill once more, for real on the device
+    model = api.get_model(real_cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    batch = prompts(real_cfg, B, P, 0, device)
+    with torch.no_grad():
+        real = analysis.analyze_step(model.prefill, params, batch,
+                                     cache_len=prefix_len(batch) + n)
+    sync()
+    del model, params, batch, real_batch
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    checks = {
+        "steps_counted": len(lines) == 1 + 2 * len(timed),
+        "real_prefill_flops_equal_fake": real.flops == fake_prefill_flops,
+        "compute_term_within_measured": all(
+            r["compute_share"] <= ROOFLINE_COMPUTE_SLACK for r in lines)}
+    lines.append({"phase": "roofline", "card": card, "steps": len(lines),
+                  "real_prefill_flops": real.flops,
+                  "fake_prefill_flops": fake_prefill_flops,
+                  "real_prefill_bytes": real.bytes_traffic,
+                  "max_compute_share": max(r["compute_share"]
+                                           for r in lines),
+                  "peak_flops": analysis.PEAK_FLOPS,
+                  "hbm_bytes_per_s": analysis.HBM_BW,
+                  "seconds": time.perf_counter() - t_phase,
+                  "checks": checks, "ok": all(checks.values())})
+    return lines
+
+
+def numbers(x) -> list:
+    """A measured time or a list of them, as a list."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def start_dryrun(device, out_dir: str) -> list:
+    """The dry-run cells of the ``dryrun`` phase, started as subprocesses
+    of ``python -m repro_torch.launch.dryrun`` (its fake 512-rank process
+    group cannot share this process with the mesh phases' one-rank
+    group): llama3.2-1b at ``train_4k``, and every arch at
+    ``decode_32k``, each on both meshes, on fake ``device`` tensors.
+    Returns [(name, Popen, start time)]."""
+    from repro_torch.configs.base import ARCH_IDS
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = []
+    for name, arch, shape in DRYRUN_RUNS:
+        arch = ",".join(ARCH_IDS) if arch == "*" else arch
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--both-meshes",
+               "--device", device.type, "--out",
+               str(pathlib.Path(out_dir) / f"{name}.json")]
+        procs.append((name, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), time.perf_counter()))
+    return procs
+
+
+def dryrun_phase(procs: list, out_dir: str, card: str = "") -> dict:
+    """Wait for ``start_dryrun``'s subprocesses; one line with each cell's
+    resident GB per chip, roofline terms and trace seconds.  ``ok`` is
+    false if a subprocess failed or a cell is missing."""
+    from repro_torch.configs.base import ARCH_IDS
+    t0 = time.perf_counter()
+    runs, cells = {}, []
+    for name, proc, started in procs:
+        try:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        runs[name] = {"returncode": proc.returncode,
+                      "seconds": time.perf_counter() - started,
+                      "last_line": out.strip().splitlines()[-1:],
+                      "stderr_tail": err[-2000:] if proc.returncode else ""}
+        path = pathlib.Path(out_dir) / f"{name}.json"
+        if path.exists():
+            cells += json.loads(path.read_text())["results"]
+    keys = ("arch", "shape", "mesh", "chips", "resident_gb_per_chip",
+            "flops", "bytes", "model_flops", "t_compute_s", "t_memory_s",
+            "t_collective_s", "bottleneck", "useful_flops_ratio",
+            "roofline_fraction", "trace_s", "lower_s")
+    want = 2 * sum(len(ARCH_IDS) if arch == "*" else 1
+                   for _, arch, _ in DRYRUN_RUNS)
+    checks = {"exit_codes_0": all(r["returncode"] == 0
+                                  for r in runs.values()),
+              "cells": len(cells) == want,
+              "collective_term_unknown": all(
+                  c["t_collective_s"] is None for c in cells)}
+    return {"phase": "dryrun", "card": card, "runs": runs,
+            "cells": [{k: c[k] for k in keys} for c in cells],
+            "wait_seconds": time.perf_counter() - t0, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def examples_phase(device, card: str = "") -> dict:
+    """``examples/torch_*.py`` (``EXAMPLES``) as subprocesses on
+    ``device``, all started together; each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    extra = ["--device", "cpu"] if device.type == "cpu" else []
+    t0 = time.perf_counter()
+    procs = {name: (subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py"), *argv,
+         *extra], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter())
+        for name, argv in EXAMPLES}
+    runs = {}
+    try:
+        for name, (proc, started) in procs.items():
+            try:
+                out, err = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            runs[name] = {"returncode": proc.returncode,
+                          "seconds": time.perf_counter() - started,
+                          "last_lines": out.strip().splitlines()[-2:],
+                          "stderr_tail": err[-2000:] if proc.returncode
+                          else ""}
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    checks = {f"{name}_exit_0": r["returncode"] == 0
+              for name, r in runs.items()}
+    return {"phase": "examples", "card": card, "device": str(device),
+            "runs": runs, "seconds": time.perf_counter() - t0,
+            "checks": checks, "ok": all(checks.values())}
+
+
 def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
         log_dir=None) -> list[dict]:
     """Every phase; raises on the first failure.  Returns the kernel
@@ -2366,6 +2660,29 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
             raise AssertionError(f"{lines[0]['phase']}: checks failed: "
                                  f"{bad}")
         config_lines += lines
+    # the step roofline, the examples and the dry run (its subprocesses
+    # trace on the host's CPU while the other two run)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry_procs = start_dryrun(device, out_dir)
+    try:
+        roof_lines = roofline_phase(sizes, device, serve_line, train_line,
+                                    config_lines, sync, card)
+        for line in roof_lines:
+            emit(line)
+        examples_line = examples_phase(device, card)
+        emit(examples_line)
+        dryrun_line = dryrun_phase(dry_procs, out_dir, card)
+        emit(dryrun_line)
+    finally:
+        for _, proc, _ in dry_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    bad = [(line["phase"], line["checks"]) for line in
+           (roof_lines[-1], examples_line, dryrun_line) if not line["ok"]]
+    if bad:
+        raise AssertionError(f"checks failed: {bad}")
     # each kernel's launches in the model phases' checkpoints
     ckpts = [("train", train_line)] + [
         (line["arch"], line) for line in config_lines if "save_kernels"

@@ -1,7 +1,8 @@
 """Model / shape configuration, copied from the JAX reference.
 
-``ModelConfig``, ``ShapeConfig``, ``SHAPES`` and ``ARCH_IDS`` are the
-reference's (``repro/configs/base.py``), with only the imports changed.
+``ModelConfig``, ``ShapeConfig``, ``SHAPES``, ``ARCH_IDS`` and
+``runnable_cells`` are the reference's (``repro/configs/base.py``), with
+only the imports changed.
 Each architecture is a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; ``reduced()`` derives the same-family small
 config the CPU tests use.
@@ -195,3 +196,15 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, honouring the long_500k skip rule."""
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not cfg.is_subquadratic:
+                continue  # pure full attention: the reference skips it
+            cells.append((arch, shape.name))
+    return cells

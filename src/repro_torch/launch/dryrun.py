@@ -1,0 +1,334 @@
+"""Multi-pod dry run of the port: prove the distribution config is coherent.
+
+Port of the JAX reference's ``repro/launch/dryrun.py``.  For every
+(architecture x input shape) cell it builds the step (train step,
+prefill step or serve step) through the port's builders on the
+production mesh -- 16x16 single pod and 2x16x16 multi-pod -- and records
+the resident bytes per chip and the roofline terms to JSON.  One process
+stands for the mesh: the meshes are ``DeviceMesh`` es over a fake
+process group of 512 ranks (``torch.testing``'s ``FakeStore``), made at
+the first call when there is no group (the 16x16 mesh takes the first
+256 ranks), and the tensors are fake (``FakeTensorMode``) on ``--device``
+(``cuda`` by default, as every entry point of the port), so a step of
+256 x 4096 tokens costs no memory.
+
+Per cell:
+
+* ``resident_gb_per_chip``: the params, optimizer state and caches under
+  the builders' shardings on the mesh (``analytical_memory_gb``, the
+  reference's arithmetic);
+* the roofline terms (``analysis.Roofline``) from the whole-mesh FLOPs and
+  bytes of the *plain* step at the cell's global shapes, counted by
+  ``analysis.analyze_step`` on fake tensors: a train cell's microbatch
+  body is traced once and weighted by the microbatch count, as
+  ``analyze_hlo`` weights a while body by its trip count, and the
+  optimizer update once.  ``trace_s`` is the trace's host seconds;
+* ``collectives``, ``n_collectives`` and the collective term: ``null``.
+  The port's sharded steps compute on a mesh of one device and raise on
+  a larger one (ROADMAP.md, Queue 1 F5), so the sharded step, whose
+  collectives the reference counts in its post-SPMD HLO, cannot be
+  traced yet; its collective bytes are unknown, not 0.  For the same
+  reason the FLOPs hold no post-SPMD redundancy;
+* ``memory_analysis`` and ``xla_cost_analysis``: ``null``; XLA's
+  compiled-artifact analyses have no torch twin.
+
+Importing this module touches no process group and no environment
+variable.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama32_1b \\
+      --shape train_4k [--multi-pod] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
+      --out results/dryrun_torch.json
+``--arch`` and ``--shape`` also take comma-separated lists (every pair
+runs), which the reference's take one name each.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import SHAPES, get_config, runnable_cells
+from repro_torch.distributed.sharding import MeshRules
+from repro_torch.launch import analysis
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import api
+from repro_torch.serve.step import build_decode_step, build_prefill_step
+from repro_torch.train import optimizer as opt
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import TrainStepConfig, build_train_step
+from repro_torch.tree import flatten_with_path, tree_map
+
+# archs whose fp32 optimizer state cannot fit one pod: 8-bit moments
+INT8_MOMENT_ARCHS = {"jamba_15_large", "deepseek_v2_236b"}
+# archs whose bf16 params alone exceed HBM under model-axis TP: ZeRO-3/
+# FSDP param sharding over the data axes.  (coder/internlm are handled by
+# ZeRO-1 opt-state sharding + the non-divisible-heads data-plane fallback
+# -- full FSDP on them triggered GSPMD involuntary-remat pathologies, see
+# EXPERIMENTS.md SSPerf iteration log.)
+FSDP_ARCHS = {"jamba_15_large", "deepseek_v2_236b"}
+# per-arch microbatch counts for the train_4k global batch of 256
+# (jamba/dsv2 tuned down from 16 in SSPerf iterations)
+TRAIN_MICROBATCHES = {
+    "jamba_15_large": 8, "deepseek_v2_236b": 8, "deepseek_coder_33b": 8,
+    "internlm2_20b": 8, "falcon_mamba_7b": 8, "phi3_vision_4b": 4,
+    "whisper_tiny": 1, "gemma3_1b": 2, "llama32_1b": 2, "granite_moe_1b": 2,
+}
+
+
+def production_mesh(multi_pod: bool = False, device: str = "cuda"):
+    """The production mesh over the default process group; with none, a
+    fake group of 512 ranks is made first (and kept for the next cell).
+    On a group of 512 the 16x16 mesh takes its first 256 ranks."""
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=512)
+    if multi_pod or dist.get_world_size() != 512:
+        return make_production_mesh(multi_pod=multi_pod, device=device)
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(device, torch.arange(256).reshape(16, 16),
+                      mesh_dim_names=("data", "model"))
+
+
+def _step_config(arch: str, overrides: dict) -> TrainStepConfig:
+    return TrainStepConfig(
+        microbatches=overrides.get(
+            "microbatches", TRAIN_MICROBATCHES.get(arch, 4)),
+        adamw=AdamWConfig(moment_dtype=(
+            "int8" if arch in INT8_MOMENT_ARCHS else "fp32")),
+        remat=overrides.get("remat", True),
+        remat_policy=overrides.get(
+            "remat_policy",
+            # jamba: saving dot outputs beat full remat (SSPerf cell 2)
+            "dots" if arch == "jamba_15_large" else "nothing"))
+
+
+def build_cell(arch: str, shape_name: str, mesh,
+               overrides: dict | None = None) -> tuple[float, object]:
+    """(resident GB per chip, the step's plain function) of a cell: the
+    builders' shardings on ``mesh``, as the reference's ``lower_cell``
+    builds them before it lowers."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    overrides = overrides or {}
+    rules = MeshRules(mesh, fsdp=overrides.get("fsdp", arch in FSDP_ARCHS))
+    if shape.kind == "train":
+        step, in_sh, _, param_shapes, opt_shapes = build_train_step(
+            cfg, rules, _step_config(arch, overrides))
+        resident_gb = analytical_memory_gb(
+            (in_sh[0], in_sh[1]), (param_shapes, opt_shapes), mesh)
+    elif shape.kind == "prefill":
+        step, in_sh, out_sh, param_shapes = build_prefill_step(cfg, rules,
+                                                               shape)
+        resident_gb = analytical_memory_gb(
+            (in_sh[0], out_sh[1]), (param_shapes, api.cache_specs(cfg, shape)),
+            mesh)
+    else:  # decode
+        step, in_sh, _, cache_shapes = build_decode_step(cfg, rules, shape)
+        param_shapes = api.get_model(cfg).param_shapes()
+        resident_gb = analytical_memory_gb(
+            (in_sh[0], in_sh[1]), (param_shapes, cache_shapes), mesh)
+    return resident_gb, step
+
+
+def _fake(specs, device):
+    """Fake tensors of a tree of ``Spec``; call under a ``FakeTensorMode``."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device=device), specs)
+
+
+def trace_cell(arch: str, shape_name: str, step, device: str = "cuda"
+               ) -> tuple[analysis.StepStats, float]:
+    """The counts of the cell's plain step at its global shapes on fake
+    ``device`` tensors, and the host seconds the trace took.  ``step``:
+    ``build_cell``'s; a train cell traces it (its microbatch body once),
+    a serve cell the plain model's ``prefill`` or ``decode_step``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    model = api.get_model(cfg)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        params = _fake(model.param_shapes(), device)
+        if shape.kind == "train":
+            nmb = step.microbatches
+            opt_state = _fake(opt.state_shapes(model.param_shapes(),
+                                               step.adamw), device)
+            mb = _fake(api.input_specs(
+                cfg, shape, batch_override=shape.global_batch // nmb),
+                device)
+            if nmb == 1:
+                stats = analysis.analyze_step(step, params, opt_state, mb)
+            else:
+                acc, loss_sum = step.accumulator(params)
+                body = analysis.analyze_step(step.microbatch, params, acc,
+                                             loss_sum, mb)
+                rest = analysis.analyze_step(
+                    lambda: step.update(opt_state, *step.mean_grads(
+                        params, *step.accumulator(params))))
+                stats = body.scaled(nmb) + rest
+        elif shape.kind == "prefill":
+            batch = _fake(api.input_specs(cfg, shape), device)
+            with torch.no_grad():
+                stats = analysis.analyze_step(
+                    model.prefill, params, batch, cache_len=shape.seq_len)
+        else:  # decode: one token at the cache's last slot
+            cache = _fake(api.cache_specs(cfg, shape), device)
+            token = _fake(api.input_specs(cfg, shape), device)["token"]
+            with torch.no_grad():
+                stats = analysis.analyze_step(
+                    model.decode_step, params, cache, token,
+                    shape.seq_len - 1)
+    return stats, time.perf_counter() - t0
+
+
+def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
+               verbose: bool = True, overrides: dict | None = None,
+               device: str = "cuda", mesh=None, traces: dict | None = None
+               ) -> dict:
+    """The cell's result (module docstring).  ``mesh``: the production
+    mesh (default ``production_mesh(multi_pod, device)``).  ``traces``:
+    a dict that keeps ``trace_cell``'s results by (arch, shape) across
+    calls with the same overrides (a trace does not depend on the
+    mesh)."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    mesh = mesh if mesh is not None else production_mesh(multi_pod, device)
+    t0 = time.perf_counter()
+    resident_gb, step = build_cell(arch, shape_name, mesh, overrides)
+    t_build = time.perf_counter() - t0
+    traces = {} if traces is None else traces
+    if (arch, shape_name) not in traces:
+        traces[arch, shape_name] = trace_cell(arch, shape_name, step, device)
+    stats, trace_s = traces[arch, shape_name]
+    # the plain step at global shapes counts the whole mesh's work
+    chips = mesh.size()
+    roof = analysis.Roofline(
+        flops=stats.flops, bytes_accessed=stats.bytes_traffic,
+        coll_bytes=None, chips=chips,
+        model_flops=analysis.model_flops(cfg, shape))
+
+    result = {
+        "arch": arch, "shape": shape_name,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "chips": chips, "device": device,
+        "lower_s": round(t_build, 1), "trace_s": round(trace_s, 1),
+        "collectives": None,
+        "n_collectives": None,
+        "unknown_loops": stats.unknown_loops,
+        "resident_gb_per_chip": round(resident_gb, 3),
+        "xla_cost_analysis": None,
+        "memory_analysis": None,
+        **roof.to_dict(),
+    }
+    if verbose:
+        print(f"== {arch} x {shape_name} on {result['mesh']} "
+              f"({chips} chips, fake {device} tensors) ==")
+        print("resident GB/chip (params+state+cache, sharded): "
+              f"{resident_gb:.2f}")
+        print("plain step: flops=%.3e bytes=%.3e (whole mesh; traced in "
+              "%.1fs; collectives unknown until the sharded step runs)"
+              % (stats.flops, stats.bytes_traffic, trace_s))
+        print("roofline: compute=%.4fs memory=%.4fs collective=unknown "
+              "bottleneck=%s useful=%.2f roofline_frac=%.3f" %
+              (roof.t_compute, roof.t_memory, roof.bottleneck,
+               roof.useful_flops_ratio, roof.roofline_fraction))
+    return result
+
+
+def analytical_memory_gb(shardings_trees, shapes_trees, mesh) -> float:
+    """Per-device resident bytes of the step's persistent arrays
+    (params/opt-state/caches) under their actual shardings -- the
+    'does it fit' number."""
+    names = list(mesh.mesh_dim_names)
+    total = 0
+    for sh_tree, shp_tree in zip(shardings_trees, shapes_trees):
+        shs = [sh for _, sh in flatten_with_path(sh_tree)]
+        shps = [shp for _, shp in flatten_with_path(shp_tree)]
+        for sh, shp in zip(shs, shps):
+            n_shards = 1
+            for entry in sh.spec:
+                if entry is None:
+                    continue
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                for a in axes:
+                    n_shards *= mesh.size(names.index(a))
+            total += math.prod(shp.shape) * shp.dtype.itemsize / n_shards
+    return total / 2**30
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", help="an arch, or a comma-separated list")
+    ap.add_argument("--shape", help="a shape, or a comma-separated list")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--microbatches", type=int)
+    ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--remat-policy", default="")
+    ap.add_argument("--device", default="cuda",
+                    help="device type of the fake tensors and the mesh")
+    args = ap.parse_args(argv)
+
+    overrides = {}
+    if args.microbatches:
+        overrides["microbatches"] = args.microbatches
+    if args.no_fsdp:
+        overrides["fsdp"] = False
+    if args.remat_policy:
+        overrides["remat_policy"] = args.remat_policy
+
+    if args.all:
+        cells = runnable_cells()
+    else:  # comma-separated lists: every pair
+        cells = [(a, s) for a in args.arch.split(",")
+                 for s in args.shape.split(",")]
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+
+    results, failures = [], []
+    try:
+        built = {mp: production_mesh(mp, args.device) for mp in meshes}
+        traces = {}  # one trace serves both meshes
+        for arch, shape in cells:
+            for mp in meshes:
+                try:
+                    results.append(lower_cell(
+                        arch, shape, multi_pod=mp, overrides=overrides,
+                        device=args.device, mesh=built[mp], traces=traces))
+                except Exception as e:  # noqa: BLE001 -- report, keep going
+                    traceback.print_exc()
+                    failures.append({"arch": arch, "shape": shape,
+                                     "multi_pod": mp, "error": repr(e)})
+    finally:
+        dist.destroy_process_group()
+    if args.out:
+        existing = []
+        if os.path.exists(args.out):
+            with open(args.out) as f:
+                existing = json.load(f).get("results", [])
+        keyf = lambda r: (r["arch"], r["shape"], r["mesh"])  # noqa: E731
+        seen = {keyf(r) for r in results}
+        merged = results + [r for r in existing if keyf(r) not in seen]
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"results": merged, "failures": failures}, f, indent=1)
+    print(f"\n{len(results)} cells traced OK, {len(failures)} failed")
+    if failures:
+        for f_ in failures:
+            print("FAILED:", f_)
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._guards import detect_fake_mode
 
 Params = dict[str, Any]
 
@@ -76,12 +77,25 @@ def layer_norm(x, w, b, eps: float = 1e-5):
 
 # ----------------------------------------------------------------- rope ----
 @functools.lru_cache(maxsize=16)
-def _rope_inv(d: int, theta: float, device: torch.device) -> torch.Tensor:
+def _rope_inv_np(d: int, theta: float) -> np.ndarray:
     """The (d/2,) fp32 inverse frequencies, computed in numpy as the
-    reference computes them, uploaded once per (d, theta, device): a
-    decode step would otherwise copy them to the card at every layer."""
-    inv = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))
-    return torch.from_numpy(inv).to(device)
+    reference computes them."""
+    return 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_inv_on(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_rope_inv_np(d, theta)).to(device)
+
+
+def _rope_inv(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``_rope_inv_np`` on ``device``, uploaded once per (d, theta,
+    device): a decode step would otherwise copy it to the card at every
+    layer.  Under a fake mode (the dry run's traces) it is made anew: a
+    memoised fake tensor would reach the next fake mode, or a real run."""
+    if detect_fake_mode() is not None:
+        return torch.from_numpy(_rope_inv_np(d, theta)).to(device)
+    return _rope_inv_on(d, theta, device)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

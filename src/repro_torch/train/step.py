@@ -77,45 +77,67 @@ def build_train_step(cfg, rules: MeshRules, tcfg: TrainStepConfig):
                           remat_policy=tcfg.remat_policy)
     acfg = tcfg.adamw
 
-    def step_fn(params, opt_state, batch):
-        nmb = tcfg.microbatches
-        if nmb == 1:
-            loss, grads = value_and_grad(model, params, batch)
-        else:
-            acc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=device), params)
-            if tcfg.int8_grad_accum:
-                acc = tree_map(opt._quantize, acc)
-            loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-            for mb in _split_microbatches(batch, nmb, rules):
-                l, g = value_and_grad(model, params, mb)
-                with torch.no_grad():
-                    if tcfg.int8_grad_accum:
-                        acc = map_with_path(
-                            lambda path, p: opt._quantize(
-                                opt._dequantize(opt._at(acc, path), p.shape)
-                                + opt._at(g, path).to(torch.float32)),
-                            params)
-                    else:
-                        acc = map_with_path(
-                            lambda path, a: a + opt._at(g, path).to(
-                                torch.float32), acc)
-                loss_sum = loss_sum + l
-            with torch.no_grad():
-                if tcfg.int8_grad_accum:
-                    grads = map_with_path(
-                        lambda path, p: opt._dequantize(
-                            opt._at(acc, path), p.shape) / nmb, params)
-                else:
-                    grads = tree_map(lambda a: a / nmb, acc)
-            loss = loss_sum / nmb
+    def accumulator(params):
+        """The zero fp32 (or int8) gradient accumulator and loss sum."""
+        acc = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=device), params)
+        if tcfg.int8_grad_accum:
+            acc = tree_map(opt._quantize, acc)
+        return acc, torch.zeros((), dtype=torch.float32, device=device)
 
+    def microbatch(params, acc, loss_sum, mb):
+        """One microbatch's gradients added into the accumulator: the
+        body of the reference's ``lax.scan``."""
+        l, g = value_and_grad(model, params, mb)
+        with torch.no_grad():
+            if tcfg.int8_grad_accum:
+                acc = map_with_path(
+                    lambda path, p: opt._quantize(
+                        opt._dequantize(opt._at(acc, path), p.shape)
+                        + opt._at(g, path).to(torch.float32)),
+                    params)
+            else:
+                acc = map_with_path(
+                    lambda path, a: a + opt._at(g, path).to(
+                        torch.float32), acc)
+        return acc, loss_sum + l
+
+    def mean_grads(params, acc, loss_sum):
+        """(loss, grads): the accumulator's means over the microbatches."""
+        nmb = tcfg.microbatches
+        with torch.no_grad():
+            if tcfg.int8_grad_accum:
+                grads = map_with_path(
+                    lambda path, p: opt._dequantize(
+                        opt._at(acc, path), p.shape) / nmb, params)
+            else:
+                grads = tree_map(lambda a: a / nmb, acc)
+        return loss_sum / nmb, grads
+
+    def update(opt_state, loss, grads):
+        """The AdamW update and the step's metrics."""
         new_opt, new_params = opt.apply(opt_state, grads, acfg)
         with torch.no_grad():
             gnorm = opt._global_norm(grads)
         metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm,
                    "step": new_opt["step"]}
         return new_params, new_opt, metrics
+
+    def step_fn(params, opt_state, batch):
+        if tcfg.microbatches == 1:
+            loss, grads = value_and_grad(model, params, batch)
+        else:
+            acc, loss_sum = accumulator(params)
+            for mb in _split_microbatches(batch, tcfg.microbatches, rules):
+                acc, loss_sum = microbatch(params, acc, loss_sum, mb)
+            loss, grads = mean_grads(params, acc, loss_sum)
+        return update(opt_state, loss, grads)
+
+    # the parts, for the dry run to count the loop body once
+    step_fn.microbatches, step_fn.adamw = tcfg.microbatches, acfg
+    step_fn.model, step_fn.accumulator = model, accumulator
+    step_fn.microbatch, step_fn.mean_grads = microbatch, mean_grads
+    step_fn.update = update
 
     # ---------------- shardings ----------------
     param_shapes = model.param_shapes()

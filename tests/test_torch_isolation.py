@@ -1,4 +1,7 @@
-"""The port stands alone: no JAX, no ``repro``, no silent host fallback."""
+"""The port stands alone: no JAX, no ``repro``, no silent host fallback.
+
+The port, ``chip_smoke.py`` and ``examples/torch_*.py`` import under a
+blocker of ``jax`` and ``repro``."""
 
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
             importlib.import_module(mod.name)
         sys.path.insert(0, ".")
         import chip_smoke
+        sys.path.insert(0, "examples")
+        import torch_checkpoint_restore, torch_quickstart, torch_serve_lm
+        import torch_train_lm
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -65,7 +71,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                      "repro_torch.core.radmad",
                      "repro_torch.distributed.sharding",
                      "repro_torch.serve.step",
-                     "repro_torch.launch.mesh"):
+                     "repro_torch.launch.mesh",
+                     "repro_torch.launch.analysis",
+                     "repro_torch.launch.dryrun"):
             assert name in sys.modules, name
         print("imported", len([m for m in sys.modules
                                if m.startswith("repro_torch")]))
