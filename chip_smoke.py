@@ -56,8 +56,9 @@ through the entry points a user calls, on the card:
 10. ``profile_put``, ``profile_fused_put``: the put window once more on
    each engine, into a fresh store, under ``torch.profiler``: the
    device's busy time by kernel and copy, and its idle share.
-11. ``checkpoint``: llama3.2-1b at full width, built on the card from
-   ``torch.Generator`` seed 0 (~2.47 GB of bf16), saved as step 1
+11. ``checkpoint``: llama3.2-1b at full width, cut to 8 of its 16
+   layers (``SERVE_LAYERS``), built on the card from
+   ``torch.Generator`` seed 0 (~1.5 GB of bf16), saved as step 1
    through ``SEARSCheckpointManager`` into a store on
    ``engine="fused"`` (one SEARS file per leaf), restored and held equal
    leaf for leaf; then step 2 with only ``final_norm`` changed, whose
@@ -101,7 +102,7 @@ through the entry points a user calls, on the card:
    and prompt: gemma3-1b's (16 stored query heads, one KV head, head dim
    256, window 512) and internlm2-20b's (48:8 heads, head dim 128).
 
-14. ``train``: llama3.2-1b at full width, cut to 4 of its 16 layers
+14. ``train``: llama3.2-1b at full width, cut to 2 of its 16 layers
    (``TRAIN_LAYERS``), trained through ``Trainer(mesh=default_mesh())``
    (the (1, 1) host mesh over a one-rank nccl group; the state DTensors
    in the train step's placements) with int8 moments at B =
@@ -207,14 +208,38 @@ through the entry points a user calls, on the card:
    FLOPs exactly.  One line per step, then one with the checks.
 19. ``examples``: ``examples/torch_*.py`` run on the card as
    subprocesses, all four together (``EXAMPLES``); each must exit 0.
-20. ``dryrun``: ``python -m repro_torch.launch.dryrun`` in subprocesses
+20. ``mesh_ranks``: the models on a mesh of more than one device.
+   Here, the mesh of one's serve (4 x 1024-token prompts of seed 0, 32
+   greedy tokens, seed-0 weights at full width) of each
+   ``MESH_RANK_CONFIGS`` config -- llama3.2-1b (16 layers, its 8 KV
+   heads over ``model``), gemma3-1b (26 layers; one KV head, so the
+   cache shards its slots; a 262,144-row vocabulary), whisper-tiny
+   (heads padded to 16, cross caches) and falcon-mamba-7b at 8 of its
+   64 layers (the ``in_proj`` exchange) -- and 3 train steps of the
+   train phase's config on the mesh of one.  Then two rank
+   subprocesses (``chip_smoke.py --mesh-rank``) share the card, a gloo
+   group over localhost (NCCL refuses two ranks on one device): each
+   config served through the step builders on a (1, 2) mesh, decode fed
+   the mesh of one's tokens, its last logits and every cache leaf whole
+   (``whole``: an all-reduce of each shard placed into zeros) held by
+   the serve gates, each decided argmax equal; and the train steps
+   through ``Trainer(mesh=)`` on (2, 1) (ZeRO-1, int8 moments) and (1,
+   2), loss and grad norm a step within ``MESH_TRAIN_LOSS_TOL`` /
+   ``MESH_TRAIN_GNORM_TOL``.  One line: each config's readings, times
+   and the collectives of a prefill and a decode step (and of a train
+   step), labelled ``MESH_RANKS_LABEL``: two ranks on one card over
+   gloo through the host are not a tensor-parallel speed.  A failing
+   rank fails the phase.
+21. ``dryrun``: ``python -m repro_torch.launch.dryrun`` in subprocesses
    (``DRYRUN_RUNS``: llama3.2-1b at ``train_4k`` and every config at
    ``decode_32k``, each on the 16x16 and 2x16x16 meshes, fake ``cuda``
    tensors), started before phase 18 and traced on the host's CPU
-   while phases 18-19 run: their fake 512-rank process group cannot
+   while phases 18-20 run: their fake 512-rank process group cannot
    share this process with the mesh phases' one-rank group.  One line
    with each cell's resident GB per chip, roofline terms and trace
-   seconds; every cell must trace, its collective term unknown.
+   seconds; every cell must trace, the seven configs whose steps shard
+   with their collective term (one rank's sharded step), the MoE, MLA
+   and hybrid cells with theirs ``null`` and the reason (Queue 1 F6).
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
@@ -339,9 +364,16 @@ TRAIN_TIMED_STEPS = 6
 # Layers of llama3.2-1b the train phase keeps (of 16).  Its save and
 # degraded restore are host-bound and scale with the state's bytes: at
 # all 16 layers (11.45 GB) they took 600 s of a 1227 s run on a slow
-# host, over the script's limit beside the later phases; 4 layers keep
-# 41% of the state (the embedding is a fifth of the parameters).
-TRAIN_LAYERS = 4
+# host, over the script's limit beside the later phases; 4 layers (4.6
+# GB) took 250 s of a 1260 s run on a slow host once the mesh_ranks
+# phase came (PERF.md, PR 23); 2 layers keep 3.5 GB of state (the
+# embedding and its optimizer state are 2.4 GB of it).
+TRAIN_LAYERS = 2
+# Layers of llama3.2-1b the checkpoint and serve phases keep (of 16), for
+# the same reason: its weights' save, restore and deduplicated second
+# save took 154 s of that run at 16 layers (2.47 GB); 8 layers keep 1.5
+# GB, every width and the serve check's shapes.
+SERVE_LAYERS = 8
 # The dense configs served after the train phase, at full width: (arch,
 # layers kept, None for all of them).  deepseek-coder-33b holds 0.545e9
 # parameters a layer: its 62 layers (68.5 GB of bf16) leave an 80 GB card
@@ -383,6 +415,31 @@ ROOFLINE_COMPUTE_SLACK = 1.05
 DRYRUN_RUNS = (("train", "llama32_1b", "train_4k"),
                ("decode", "*", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
+# The mesh_ranks phase: two rank subprocesses on the one card, a gloo
+# group over localhost (NCCL refuses two ranks on one device), serve these
+# configs at full width on a (1, 2) mesh -- (arch, layers kept, None for
+# all of them): llama3.2-1b's 8 KV heads shard, gemma3-1b's one does not
+# (its cache shards its slots), whisper-tiny's 16 stored heads and cross
+# caches, falcon-mamba-7b's in_proj exchange at 8 of its 64 layers (for
+# time) -- and train llama3.2-1b (the train phase's config) on these
+# meshes.  A rank that fails fails the phase.
+MESH_RANK_CONFIGS = (("llama32_1b", None), ("gemma3_1b", None),
+                     ("whisper_tiny", None), ("falcon_mamba_7b", 8))
+MESH_RANK_TRAIN = ((2, 1), (1, 2))
+MESH_RANK_TRAIN_STEPS = 3
+# The mesh train against the mesh of one, per step (PERF.md, written
+# before the first reading): the loss within 2e-3 and the grad norm
+# within 2e-2, relative.  The two runs round their bf16 matmuls apart
+# (column- and row-parallel halves, sums over ranks), and AdamW's
+# normalised update moves an entry whose gradient is near 0 by up to lr
+# whichever way it rounds (the reduced model on 4 CPU ranks read 1e-4
+# and 7.8e-4: tests/test_torch_multirank.py).
+MESH_TRAIN_LOSS_TOL = 2e-3
+MESH_TRAIN_GNORM_TOL = 2e-2
+MESH_RANKS_TIMEOUT_S = 400
+MESH_RANKS_BUDGET_S = 150  # the phase's time, its subprocesses' included
+MESH_RANKS_LABEL = ("two ranks on one card over gloo through the host: "
+                    "not a tensor-parallel speed")
 # The examples phase: (example, arguments), run on the card together.
 EXAMPLES = (("torch_quickstart", ()), ("torch_serve_lm", ()),
             ("torch_train_lm", ("--tiny", "--steps", "20", "--ckpt-every",
@@ -1109,8 +1166,8 @@ def checkpoint_phase(sizes: Sizes, device, fused_engine, sync
     from repro_torch.tree import flatten_with_path
 
     cfg = get_config("llama32_1b")
-    if sizes.reduced:
-        cfg = cfg.reduced()
+    cfg = cfg.reduced() if sizes.reduced else dataclasses.replace(
+        cfg, n_layers=SERVE_LAYERS)
     model = api.get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(0))
@@ -2319,7 +2376,7 @@ def served_configs(sizes: Sizes) -> list[tuple[str, object]]:
     (reduced configs in a rehearsal)."""
     from repro_torch.configs.base import get_config
     out = []
-    for arch, depth in (("llama32_1b", None),) + DENSE_CONFIGS \
+    for arch, depth in (("llama32_1b", SERVE_LAYERS),) + DENSE_CONFIGS \
             + MOE_MLA_CONFIGS + SSM_ENCDEC_CONFIGS:
         cfg = get_config(arch)
         if sizes.reduced:
@@ -2506,20 +2563,409 @@ def dryrun_phase(procs: list, out_dir: str, card: str = "") -> dict:
         path = pathlib.Path(out_dir) / f"{name}.json"
         if path.exists():
             cells += json.loads(path.read_text())["results"]
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import multi_device_gap
     keys = ("arch", "shape", "mesh", "chips", "resident_gb_per_chip",
-            "flops", "bytes", "model_flops", "t_compute_s", "t_memory_s",
-            "t_collective_s", "bottleneck", "useful_flops_ratio",
-            "roofline_fraction", "trace_s", "lower_s")
+            "flops", "bytes", "model_flops", "flops_per_chip",
+            "bytes_per_chip", "coll_bytes", "coll_bytes_per_chip",
+            "collectives", "n_collectives", "collectives_unknown",
+            "t_compute_s", "t_memory_s", "t_collective_s", "bottleneck",
+            "useful_flops_ratio", "roofline_fraction", "trace_s", "lower_s")
     want = 2 * sum(len(ARCH_IDS) if arch == "*" else 1
                    for _, arch, _ in DRYRUN_RUNS)
+    gap = {c["arch"]: multi_device_gap(get_config(c["arch"])) for c in cells}
     checks = {"exit_codes_0": all(r["returncode"] == 0
                                   for r in runs.values()),
               "cells": len(cells) == want,
-              "collective_term_unknown": all(
-                  c["t_collective_s"] is None for c in cells)}
+              # the sharded steps' collectives, where they compute on a
+              # mesh; unknown, with the reason, where they wait for F6
+              "collective_term_known": all(
+                  c["t_collective_s"] is not None and c["n_collectives"] > 0
+                  for c in cells if gap[c["arch"]] is None),
+              "collective_term_unknown_for_f6": all(
+                  c["t_collective_s"] is None and c["collectives_unknown"]
+                  for c in cells if gap[c["arch"]] is not None)}
     return {"phase": "dryrun", "card": card, "runs": runs,
             "cells": [{k: c[k] for k in keys} for c in cells],
             "wait_seconds": time.perf_counter() - t0, "checks": checks,
+            "ok": all(checks.values())}
+
+
+# ------------------------------------------------------------ mesh_ranks --
+def mesh_config(arch: str, depth, sizes: Sizes):
+    """A ``MESH_RANK_CONFIGS`` config at ``depth`` layers (all where
+    None), or reduced."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if sizes.reduced:
+        return cfg.reduced()
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def whole(t):
+    """A DTensor as the whole tensor on every rank, through one
+    all-reduce of this rank's shard placed into zeros: the gloo group of
+    two ranks on one card has no working all-gather of CUDA tensors
+    (``full_tensor`` calls one).  Where the tensor is replicated over a
+    mesh dim, only that dim's first rank adds its shard."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    mesh, local = t.device_mesh, t.to_local()
+    coord = mesh.get_coordinate()
+    idx, add = [slice(None)] * t.ndim, True
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard):
+            start = coord[i] * -(-t.shape[p.dim] // mesh.size(i))
+            idx[p.dim] = slice(start, start + local.shape[p.dim])
+        elif coord[i]:
+            add = False
+    buf = torch.zeros(t.shape, dtype=local.dtype, device=local.device)
+    if add:
+        buf[tuple(idx)] = local
+    dist.all_reduce(buf)
+    return buf
+
+
+def counted(fn, *args):
+    """``fn(*args)`` and its collectives (``analysis.analyze_step``):
+    operand bytes by kind, and their number."""
+    from repro_torch.launch import analysis
+    res = []
+    st = analysis.analyze_step(lambda: res.append(fn(*args)))
+    return res[0], {"bytes_by_kind": {k: b for k, b in st.coll_by_kind.items()
+                                      if b},
+                    "n": st.n_collectives, "bytes": st.coll_bytes}
+
+
+def mesh_rank_serve(arch: str, depth, sizes: Sizes, mesh, device,
+                    workdir: pathlib.Path, sync) -> dict:
+    """One rank's serve of a ``MESH_RANK_CONFIGS`` config on ``mesh``
+    through the step builders: seed-0 weights laid out on their shards,
+    the prompts of seed 0, prefill, then decode fed the mesh of one's
+    greedy tokens (each step's own argmax kept); the whole last logits
+    and cache, the times (the first decode step, counted, untimed) and
+    the collectives of a prefill and a decode step."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import MeshRules, shard_tree
+    from repro_torch.launch.serve import prefix_len, prompts
+    from repro_torch.models import api
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+    from repro_torch.tree import tree_map
+
+    cfg = mesh_config(arch, depth, sizes)
+    B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
+    rules = MeshRules(mesh)
+    shape = ShapeConfig("mesh_ranks", P + n, B, "decode")
+    prefill, (psh, bsh), _, _ = build_prefill_step(cfg, rules, shape)
+    decode, in_sh, _, _ = build_decode_step(cfg, rules, shape)
+    params = api.get_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0))
+    dparams = shard_tree(params, psh)
+    del params
+    batch = prompts(cfg, B, P, 0, device)
+    Pt = prefix_len(batch)
+    fed = torch.load(workdir / f"{arch}.tokens.pt").to(device)
+    dbatch = shard_tree(batch, bsh)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(dparams, dbatch)
+    own = [whole(logits).argmax(-1)]
+    sync()
+    prefill_s = time.perf_counter() - t0
+    decode_s = 0.0
+    for i in range(n - 1):
+        tok = shard_tree(fed[:, i:i + 1], in_sh[2])
+        if i == 0:
+            (logits, cache), decode_coll = counted(decode, dparams, cache,
+                                                   tok, Pt)
+            own.append(whole(logits).argmax(-1))
+            continue
+        t0 = time.perf_counter()
+        logits, cache = decode(dparams, cache, tok, Pt + i)
+        own.append(whole(logits).argmax(-1))
+        sync()
+        decode_s += time.perf_counter() - t0
+    out = {"tokens": torch.stack(own, dim=1).cpu(),
+           "logits": whole(logits).cpu(),
+           "cache": tree_map(lambda t: whole(t).cpu(), cache),
+           "cache_placements": {k: [str(p) for p in t.placements]
+                                for k, t in cache.items()},
+           "prefill_seconds": prefill_s, "decode_seconds": decode_s,
+           "decode_steps_timed": n - 2, "decode_collectives": decode_coll}
+    del cache
+    _, out["prefill_collectives"] = counted(prefill, dparams, dbatch)
+    return out
+
+
+def mesh_rank_train(shape, sizes: Sizes, device) -> dict:
+    """One rank of ``MESH_RANK_TRAIN_STEPS`` train steps of the train
+    phase's config through ``Trainer(mesh=)`` on a mesh of ``shape``:
+    (loss, grad norm) a step, the steps' seconds (the first, counted,
+    apart) and the first step's collectives."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint.manager import SEARSCheckpointManager
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg, tcfg = train_config(sizes)
+    mesh = init_device_mesh(device.type, tuple(shape),
+                            mesh_dim_names=("data", "model"))
+    tr = Trainer(cfg, DataConfig(seq_len=sizes.train_seq,
+                                 global_batch=sizes.train_batch,
+                                 vocab_size=cfg.vocab_size),
+                 TrainerConfig(total_steps=MESH_RANK_TRAIN_STEPS,
+                               ckpt_every=1 << 30, seed=0, step_cfg=tcfg),
+                 mesh=mesh, manager=SEARSCheckpointManager(
+                     node_capacity=1 << 28, engine="numpy"))
+    first, step = [], tr.sharded_step
+
+    def run(*args):
+        if first:
+            return step(*args)
+        res, coll = counted(step, *args)
+        first.append(coll)
+        return res
+    tr.sharded_step = run
+    recs = [m for m in tr.run() if "loss" in m]
+    walls = [m["wall_s"] for m in recs]
+    return {"mesh": list(shape),
+            "metrics": [(m["loss"], m["grad_norm"]) for m in recs],
+            "step_seconds": [b - a for a, b in zip(walls, walls[1:])],
+            "collectives": first[0]}
+
+
+def mesh_rank(rank: int, port: int, workdir: str) -> None:
+    """A rank of the ``mesh_ranks`` phase (``chip_smoke.py --mesh-rank
+    RANK PORT DIR``): joins the two ranks' gloo group on localhost, serves
+    every ``MESH_RANK_CONFIGS`` config on a (1, 2) mesh, trains on each
+    ``MESH_RANK_TRAIN`` mesh; rank 0 writes the results."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    workdir = pathlib.Path(workdir)
+    spec = json.loads((workdir / "spec.json").read_text())
+    sizes, device = Sizes(**spec["sizes"]), torch.device(spec["device"])
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh(device.type, (1, 2),
+                                mesh_dim_names=("data", "model"))
+        out = {"configs": {}, "train": {}}
+        with torch.no_grad():
+            for arch, depth in MESH_RANK_CONFIGS:
+                out["configs"][arch] = mesh_rank_serve(
+                    arch, depth, sizes, mesh, device, workdir, sync)
+                gc.collect()
+        for shape in MESH_RANK_TRAIN:
+            out["train"]["x".join(map(str, shape))] = mesh_rank_train(
+                shape, sizes, device)
+            gc.collect()
+        if rank == 0:
+            torch.save(out, workdir / "rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_one(arch: str, depth, sizes: Sizes, device, workdir, sync
+             ) -> dict:
+    """The mesh of one's serve of a ``MESH_RANK_CONFIGS`` config (the
+    plain model, which the mesh-of-one builders equal bit for bit:
+    ``mesh_serve``): greedy tokens (written for the ranks to feed), the
+    top two logits and the largest |logit| of every step, the last
+    logits and the cache, on the host."""
+    import torch
+    from repro_torch.launch.serve import prefix_len, prompts
+    from repro_torch.models import api
+    from repro_torch.tree import tree_map
+
+    cfg = mesh_config(arch, depth, sizes)
+    B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
+    model = api.get_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    batch = prompts(cfg, B, P, 0, device)
+    Pt = prefix_len(batch)
+    toks, tops, scales = [], [], []
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch, cache_len=P + n)
+        for i in range(n):
+            f = logits.float()
+            tops.append(f.topk(2, dim=-1).values.cpu())
+            scales.append(float(f.abs().max()))
+            toks.append(f.argmax(-1))
+            if i < n - 1:
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[-1][:, None], Pt + i)
+    sync()
+    tokens = torch.stack(toks, dim=1)
+    torch.save(tokens.cpu(), pathlib.Path(workdir) / f"{arch}.tokens.pt")
+    out = {"cfg": cfg, "Pt": Pt, "tokens": tokens.cpu(),
+           "tops": torch.stack(tops), "scales": scales,
+           "logits": logits.cpu(), "cache": tree_map(lambda t: t.cpu(),
+                                                     cache)}
+    del params, cache, model
+    return out
+
+
+def mesh_one_train(sizes: Sizes, device) -> list:
+    """(loss, grad norm) of ``MESH_RANK_TRAIN_STEPS`` steps of the train
+    phase's config on the host mesh of one device."""
+    from repro_torch.checkpoint.manager import SEARSCheckpointManager
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg, tcfg = train_config(sizes)
+    tr = Trainer(cfg, DataConfig(seq_len=sizes.train_seq,
+                                 global_batch=sizes.train_batch,
+                                 vocab_size=cfg.vocab_size),
+                 TrainerConfig(total_steps=MESH_RANK_TRAIN_STEPS,
+                               ckpt_every=1 << 30, seed=0, step_cfg=tcfg),
+                 mesh=make_host_mesh(device.type),
+                 manager=SEARSCheckpointManager(node_capacity=1 << 28,
+                                                engine="numpy"))
+    return [(m["loss"], m["grad_norm"]) for m in tr.run() if "loss" in m]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_ranks_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
+    """``mesh_ranks``: the mesh of one's serve of each
+    ``MESH_RANK_CONFIGS`` config and its train steps here, then two rank
+    subprocesses (``mesh_rank``) over gloo on localhost: each config's
+    serve on a (1, 2) mesh, decode fed the mesh of one's greedy tokens,
+    held by the serve gates (``SERVE_GATES``, else the base ones): the
+    last logits and every cache leaf per layer (slot caches over the
+    slots written) within the cache and logit gates of their largest
+    |value|, and each step's argmax equal to the mesh of one's token
+    where its top two logits lie further apart than the logit gate; and
+    the train steps on each ``MESH_RANK_TRAIN`` mesh, loss and grad norm
+    within ``MESH_TRAIN_LOSS_TOL`` / ``MESH_TRAIN_GNORM_TOL`` of the mesh
+    of one's, relative.  A rank that fails fails the phase.  The times
+    and collectives are ``MESH_RANKS_LABEL``."""
+    import torch
+    t_start = time.perf_counter()
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        one = {arch: mesh_one(arch, depth, sizes, device, workdir, sync)
+               for arch, depth in MESH_RANK_CONFIGS}
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        one_train = mesh_one_train(sizes, device)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        (workdir / "spec.json").write_text(json.dumps(
+            {"sizes": dataclasses.asdict(sizes), "device": device.type}))
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=str(SRC), GLOO_SOCKET_IFNAME="lo")
+        t_ranks = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             str(r), str(port), str(workdir)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in (0, 1)]
+        errs = []
+        try:
+            for r, proc in enumerate(procs):
+                try:
+                    _, err = proc.communicate(timeout=MESH_RANKS_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    _, err = proc.communicate()
+                if proc.returncode != 0:
+                    errs.append(f"rank {r} exited {proc.returncode}: "
+                                f"{err[-3000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        if errs:
+            raise AssertionError("mesh_ranks: " + " | ".join(errs))
+        ranks_s = time.perf_counter() - t_ranks
+        ranks = torch.load(workdir / "rank0.pt", weights_only=False)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    configs, checks = [], {}
+    for arch, _ in MESH_RANK_CONFIGS:
+        o, r = one[arch], ranks["configs"][arch]
+        cfg = o["cfg"]
+        cache_tol, logit_tol = (SERVE_CACHE_TOL, SERVE_LOGIT_TOL) \
+            if sizes.reduced else SERVE_GATES.get(
+                arch, (SERVE_CACHE_TOL, SERVE_LOGIT_TOL))
+        want = o["logits"].float()
+        logit_err = float((r["logits"].float() - want).abs().max()
+                          / want.abs().max())
+        decided = (o["tops"][..., 0] - o["tops"][..., 1]) > logit_tol \
+            * torch.tensor(o["scales"])[:, None]  # (steps, B)
+        agree = r["tokens"].T == o["tokens"].T
+        written = o["Pt"] + sizes.gen_tokens - 1
+        cache_err = {}
+        for name, w in o["cache"].items():
+            g = r["cache"][name]
+            if name in SLOT_CACHES:
+                g, w = g[:, :, :written], w[:, :, :written]
+            cache_err[name] = max(layer_rel_err(
+                g.float().flatten(0, -4) if name in STATE_CACHES
+                else g.float(), w.float().flatten(0, -4)
+                if name in STATE_CACHES else w.float()))
+        line = {"arch": cfg.name, "layers": cfg.n_layers,
+                "mesh": [1, 2], "batch": sizes.serve_batch,
+                "prompt_len": sizes.prompt_len, "tokens": sizes.gen_tokens,
+                "kv_heads_stored": cfg.kv_store if cfg.n_heads else None,
+                "cache_placements": r["cache_placements"],
+                "vocab_sharded": cfg.vocab_size % 2 == 0,
+                "cache_tol": cache_tol, "logit_tol": logit_tol,
+                "logit_rel_err": logit_err, "cache_rel_err": cache_err,
+                "argmax_decided": int(decided.sum()),
+                "argmax_decided_agree": bool(agree[decided].all()),
+                "argmax_agree_all": bool(agree.all()),
+                "prefill_seconds": r["prefill_seconds"],
+                "decode_seconds": r["decode_seconds"],
+                "decode_tok_per_s": sizes.serve_batch
+                * r["decode_steps_timed"] / max(r["decode_seconds"], 1e-9),
+                "prefill_collectives": r["prefill_collectives"],
+                "decode_step_collectives": r["decode_collectives"]}
+        line["ok"] = (logit_err <= logit_tol
+                      and all(e <= cache_tol for e in cache_err.values())
+                      and line["argmax_decided_agree"]
+                      and bool(torch.isfinite(r["logits"]).all()))
+        checks[f"{arch}_serve"] = line["ok"]
+        configs.append(line)
+    train = []
+    for name, t in ranks["train"].items():
+        loss_err = [abs(g[0] - w[0]) / abs(w[0])
+                    for g, w in zip(t["metrics"], one_train, strict=True)]
+        gnorm_err = [abs(g[1] - w[1]) / abs(w[1])
+                     for g, w in zip(t["metrics"], one_train, strict=True)]
+        ok = max(loss_err) <= MESH_TRAIN_LOSS_TOL \
+            and max(gnorm_err) <= MESH_TRAIN_GNORM_TOL
+        checks[f"train_{name}"] = ok
+        train.append(dict(t, mesh_of_one=one_train, loss_rel_err=loss_err,
+                          grad_norm_rel_err=gnorm_err, ok=ok))
+    seconds = time.perf_counter() - t_start
+    if not sizes.reduced:
+        checks["within_budget"] = seconds <= MESH_RANKS_BUDGET_S
+    return {"phase": "mesh_ranks", "card": card, "label": MESH_RANKS_LABEL,
+            "configs": configs, "train": train,
+            "train_loss_tol": MESH_TRAIN_LOSS_TOL,
+            "train_grad_norm_tol": MESH_TRAIN_GNORM_TOL,
+            "ranks_seconds": ranks_s, "seconds": seconds,
+            "budget_seconds": MESH_RANKS_BUDGET_S, "checks": checks,
             "ok": all(checks.values())}
 
 
@@ -2671,6 +3117,8 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
             emit(line)
         examples_line = examples_phase(device, card)
         emit(examples_line)
+        mesh_line = mesh_ranks_phase(sizes, device, sync, card)
+        emit(mesh_line)
         dryrun_line = dryrun_phase(dry_procs, out_dir, card)
         emit(dryrun_line)
     finally:
@@ -2680,7 +3128,8 @@ def run(sizes: Sizes, device, engine, fused_engine, card: str = "",
                 proc.communicate()
         shutil.rmtree(out_dir, ignore_errors=True)
     bad = [(line["phase"], line["checks"]) for line in
-           (roof_lines[-1], examples_line, dryrun_line) if not line["ok"]]
+           (roof_lines[-1], examples_line, mesh_line, dryrun_line)
+           if not line["ok"]]
     if bad:
         raise AssertionError(f"checks failed: {bad}")
     # each kernel's launches in the model phases' checkpoints
@@ -2700,7 +3149,14 @@ def main(argv=None) -> int:
     ap.add_argument("--log-dir", default=None,
                     help="write the kernel build log and the profile "
                          "table to this directory")
+    ap.add_argument("--mesh-rank", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)  # a rank of mesh_ranks
     args = ap.parse_args(argv)
+    if args.mesh_rank:
+        sys.path.insert(0, str(SRC))
+        rank, port, workdir = args.mesh_rank
+        mesh_rank(int(rank), int(port), workdir)
+        return 0
     # cuBLAS reads this when it makes its first handle: the train phase's
     # deterministic steps need it (torch refuses them without it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")

@@ -116,9 +116,10 @@ def shard_tree(tree, shardings):
 
 def distribute(t: torch.Tensor, sh: Sharding) -> DTensor:
     """``t``, the whole leaf on any device, onto its mesh and
-    placements: each rank keeps its shard, on the mesh's device."""
+    placements: each rank holds the whole leaf and keeps its shard, on
+    the mesh's device, with no collective (``src_data_rank=None``)."""
     return distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
-                             sh.placements)
+                             sh.placements, src_data_rank=None)
 
 
 def local(x):
@@ -301,28 +302,36 @@ class MeshRules:
                  self.model_axis)
 
 
-# Raised where a step would run on more than one device: the models run
-# on their local tensors and hold no collectives yet.
-MULTI_DEVICE = ("the port's models run on a mesh of one device: a step "
-                "on a larger mesh needs collectives inside the models "
-                "(ROADMAP.md, Queue 1 F5)")
+def multi_device_gap(cfg) -> str | None:
+    """Why ``cfg``'s steps cannot run on a mesh of more than one device,
+    or None where they can: the routed experts (MoE), MLA and the hybrid
+    stack hold no collectives yet (ROADMAP.md, Queue 1 F6)."""
+    if cfg.n_experts or cfg.use_mla or cfg.family == "hybrid":
+        return (f"{cfg.name}: the port's MoE, MLA and hybrid models run on "
+                "a mesh of one device; the routed experts' all-to-all, "
+                "MLA's latent cache over T and the hybrid stack wait for "
+                "ROADMAP.md, Queue 1 F6")
+    return None
 
 
-def sharded(fn, out_shardings, mesh):
-    """``fn`` as a step over DTensors: the twin, on a mesh of one, of
-    the reference's ``jax.jit(fn, in_shardings, out_shardings)``.
+def sharded(fn, out_shardings, mesh, refuse: str | None = None):
+    """``fn`` as a step over DTensors: the twin of the reference's
+    ``jax.jit(fn, in_shardings, out_shardings)``.
 
     The step takes DTensors (plain tensors and other values pass as they
     are), runs ``fn`` on their local tensors -- on a mesh of one each is
-    the whole tensor, in any placement -- and wraps every output tensor
-    as a DTensor in its placements of ``out_shardings`` (a tree of
-    ``Sharding`` with the outputs' paths), without a copy.  On a larger
-    mesh it raises ``NotImplementedError``: it never computes on a
-    slice.
+    the whole tensor, in any placement; on a larger one ``fn`` computes
+    on this rank's shards and holds the collectives itself
+    (``distributed.collectives``) -- and wraps every output tensor as a
+    DTensor in its placements of ``out_shardings`` (a tree of
+    ``Sharding`` with the outputs' paths), without a copy.  ``refuse``:
+    a reason, where ``fn`` cannot compute on ``mesh``
+    (``multi_device_gap``): the step then raises ``NotImplementedError``
+    with it.  ``step.local`` is ``fn``.
     """
     def step(*args):
-        if mesh.size() != 1:
-            raise NotImplementedError(MULTI_DEVICE)
+        if refuse is not None:
+            raise NotImplementedError(refuse)
         out = fn(*map_with_path(lambda _path, x: local(x), args))
 
         def wrap(path, t):
@@ -330,4 +339,5 @@ def sharded(fn, out_shardings, mesh):
             return DTensor.from_local(t, sh.mesh, sh.placements,
                                       run_check=False)
         return map_with_path(wrap, out)
+    step.local = fn
     return step

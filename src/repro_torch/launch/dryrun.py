@@ -17,18 +17,24 @@ Per cell:
 * ``resident_gb_per_chip``: the params, optimizer state and caches under
   the builders' shardings on the mesh (``analytical_memory_gb``, the
   reference's arithmetic);
-* the roofline terms (``analysis.Roofline``) from the whole-mesh FLOPs and
-  bytes of the *plain* step at the cell's global shapes, counted by
-  ``analysis.analyze_step`` on fake tensors: a train cell's microbatch
-  body is traced once and weighted by the microbatch count, as
-  ``analyze_hlo`` weights a while body by its trip count, and the
-  optimizer update once.  ``trace_s`` is the trace's host seconds;
-* ``collectives``, ``n_collectives`` and the collective term: ``null``.
-  The port's sharded steps compute on a mesh of one device and raise on
-  a larger one (ROADMAP.md, Queue 1 F5), so the sharded step, whose
-  collectives the reference counts in its post-SPMD HLO, cannot be
-  traced yet; its collective bytes are unknown, not 0.  For the same
-  reason the FLOPs hold no post-SPMD redundancy;
+* the roofline terms (``analysis.Roofline``) from one rank's counts
+  (``analysis.analyze_step`` on fake tensors) times the chips, as the
+  reference scales its per-device post-SPMD HLO counts: for the seven
+  configs whose steps compute on a mesh (dense, VLM, SSM,
+  encoder-decoder), one rank's *sharded* step at its local shapes, its
+  collectives included (``collectives``: operand bytes by kind,
+  ``n_collectives``, ``coll_bytes``, the collective term at 450 GB/s),
+  with the redundant work of replicated ops counted on every chip; a
+  train cell's microbatch body traced once and weighted by the
+  microbatch count, as ``analyze_hlo`` weights a while body by its trip
+  count, and the update once.  ``flops_per_chip``,
+  ``bytes_per_chip`` and ``coll_bytes_per_chip`` are that rank's;
+* for the MoE, MLA and hybrid configs, whose steps raise on a mesh of
+  more than one device (ROADMAP.md, Queue 1 F6), the *plain* step at
+  the cell's global shapes (whole-mesh FLOPs and bytes, no redundancy),
+  and ``collectives``, ``n_collectives`` and the collective term
+  ``null``, with the reason in ``collectives_unknown``;
+* ``trace_s``: the trace's host seconds;
 * ``memory_analysis`` and ``xla_cost_analysis``: ``null``; XLA's
   compiled-artifact analyses have no torch twin.
 
@@ -47,6 +53,7 @@ runs), which the reference's take one name each.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -57,7 +64,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES, get_config, runnable_cells
-from repro_torch.distributed.sharding import MeshRules
+from repro_torch.distributed.sharding import MeshRules, multi_device_gap
 from repro_torch.launch import analysis
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import api
@@ -65,7 +72,8 @@ from repro_torch.serve.step import build_decode_step, build_prefill_step
 from repro_torch.train import optimizer as opt
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import TrainStepConfig, build_train_step
-from repro_torch.tree import flatten_with_path, tree_map
+from repro_torch.models.layers import Spec
+from repro_torch.tree import at, flatten_with_path, map_with_path, tree_map
 
 # archs whose fp32 optimizer state cannot fit one pod: 8-bit moments
 INT8_MOMENT_ARCHS = {"jamba_15_large", "deepseek_v2_236b"}
@@ -114,9 +122,10 @@ def _step_config(arch: str, overrides: dict) -> TrainStepConfig:
 
 def build_cell(arch: str, shape_name: str, mesh,
                overrides: dict | None = None) -> tuple[float, object]:
-    """(resident GB per chip, the step's plain function) of a cell: the
-    builders' shardings on ``mesh``, as the reference's ``lower_cell``
-    builds them before it lowers."""
+    """(resident GB per chip, the step) of a cell: the builders'
+    shardings on ``mesh``, as the reference's ``lower_cell`` builds them
+    before it lowers.  The step carries its input shardings
+    (``step.in_sh``)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     overrides = overrides or {}
@@ -137,6 +146,7 @@ def build_cell(arch: str, shape_name: str, mesh,
         param_shapes = api.get_model(cfg).param_shapes()
         resident_gb = analytical_memory_gb(
             (in_sh[0], in_sh[1]), (param_shapes, cache_shapes), mesh)
+    step.in_sh = in_sh
     return resident_gb, step
 
 
@@ -146,25 +156,63 @@ def _fake(specs, device):
                                           device=device), specs)
 
 
-def trace_cell(arch: str, shape_name: str, step, device: str = "cuda"
+def local_specs(specs, shardings):
+    """The tree of ``Spec`` of one rank's shards (the first rank's, the
+    largest under ``torch.chunk``'s split) of the leaves of ``specs`` on
+    their ``Sharding`` in ``shardings``."""
+    def local(path, spec):
+        sh = at(shardings, path)
+        names = list(sh.mesh.mesh_dim_names)
+        shape = list(spec.shape)
+        for d, entry in enumerate(sh.spec):
+            for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                if axis is not None:
+                    shape[d] = -(-shape[d] // sh.mesh.size(
+                        names.index(axis)))
+        return Spec(tuple(shape), spec.dtype)
+    return map_with_path(local, specs)
+
+
+def shards_on(cfg, mesh) -> bool:
+    """Does ``cfg``'s step compute on ``mesh``'s shards (a mesh of more
+    than one device, and no ``multi_device_gap``)?"""
+    return mesh is not None and mesh.size() > 1 \
+        and multi_device_gap(cfg) is None
+
+
+def trace_cell(arch: str, shape_name: str, step, device: str = "cuda",
+               mesh=None) -> tuple[analysis.StepStats, float]:
+    """``trace_step`` of a cell of ``SHAPES``."""
+    return trace_step(get_config(arch), SHAPES[shape_name], step, device,
+                      mesh)
+
+
+def trace_step(cfg, shape, step, device: str = "cuda", mesh=None
                ) -> tuple[analysis.StepStats, float]:
-    """The counts of the cell's plain step at its global shapes on fake
-    ``device`` tensors, and the host seconds the trace took.  ``step``:
-    ``build_cell``'s; a train cell traces it (its microbatch body once),
-    a serve cell the plain model's ``prefill`` or ``decode_step``."""
+    """The counts of a step on fake ``device`` tensors, and the host
+    seconds the trace took.  ``step``: ``build_cell``'s (or a builder's,
+    with ``step.in_sh``).  Where it computes on ``mesh``'s shards
+    (``shards_on``): one rank's sharded step at its local shapes, its
+    collectives included (the meshes' process group must be there: the
+    dry run's fake one).  Else the plain model at the global shapes: a
+    train cell traces the plain step (its microbatch body once), a serve
+    cell the plain model's ``prefill`` or ``decode_step``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    cfg = get_config(arch)
-    shape = SHAPES[shape_name]
+    sharded = shards_on(cfg, mesh)
     model = api.get_model(cfg)
+    param_shapes = model.param_shapes()
+
+    def specs(tree, i):  # a tree of Spec, local where the step shards
+        return local_specs(tree, step.in_sh[i]) if sharded else tree
     t0 = time.perf_counter()
     with FakeTensorMode():
-        params = _fake(model.param_shapes(), device)
+        params = _fake(specs(param_shapes, 0), device)
         if shape.kind == "train":
             nmb = step.microbatches
-            opt_state = _fake(opt.state_shapes(model.param_shapes(),
-                                               step.adamw), device)
-            mb = _fake(api.input_specs(
-                cfg, shape, batch_override=shape.global_batch // nmb),
+            opt_state = _fake(specs(opt.state_shapes(param_shapes,
+                                                     step.adamw), 1), device)
+            mb = _fake(specs(api.input_specs(
+                cfg, shape, batch_override=shape.global_batch // nmb), 2),
                 device)
             if nmb == 1:
                 stats = analysis.analyze_step(step, params, opt_state, mb)
@@ -177,18 +225,26 @@ def trace_cell(arch: str, shape_name: str, step, device: str = "cuda"
                         params, *step.accumulator(params))))
                 stats = body.scaled(nmb) + rest
         elif shape.kind == "prefill":
-            batch = _fake(api.input_specs(cfg, shape), device)
-            with torch.no_grad():
-                stats = analysis.analyze_step(
-                    model.prefill, params, batch, cache_len=shape.seq_len)
+            batch = _fake(specs(api.input_specs(cfg, shape), 1), device)
+            fn = step.local if sharded else functools.partial(
+                _no_grad(model.prefill), cache_len=shape.seq_len)
+            stats = analysis.analyze_step(fn, params, batch)
         else:  # decode: one token at the cache's last slot
-            cache = _fake(api.cache_specs(cfg, shape), device)
-            token = _fake(api.input_specs(cfg, shape), device)["token"]
-            with torch.no_grad():
-                stats = analysis.analyze_step(
-                    model.decode_step, params, cache, token,
-                    shape.seq_len - 1)
+            cache = _fake(specs(api.cache_specs(cfg, shape), 1), device)
+            token = _fake({"token": specs(api.input_specs(
+                cfg, shape)["token"], 2)} if sharded else
+                api.input_specs(cfg, shape), device)["token"]
+            fn = step.local if sharded else _no_grad(model.decode_step)
+            stats = analysis.analyze_step(fn, params, cache, token,
+                                          shape.seq_len - 1)
     return stats, time.perf_counter() - t0
+
+
+def _no_grad(fn):
+    def call(*args, **kw):
+        with torch.no_grad():
+            return fn(*args, **kw)
+    return call
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
@@ -197,9 +253,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
                ) -> dict:
     """The cell's result (module docstring).  ``mesh``: the production
     mesh (default ``production_mesh(multi_pod, device)``).  ``traces``:
-    a dict that keeps ``trace_cell``'s results by (arch, shape) across
-    calls with the same overrides (a trace does not depend on the
-    mesh)."""
+    a dict that keeps ``trace_cell``'s results across calls with the same
+    overrides, by (arch, shape), and by mesh too where the step shards
+    over it."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mesh = mesh if mesh is not None else production_mesh(multi_pod, device)
@@ -207,23 +263,31 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
     resident_gb, step = build_cell(arch, shape_name, mesh, overrides)
     t_build = time.perf_counter() - t0
     traces = {} if traces is None else traces
-    if (arch, shape_name) not in traces:
-        traces[arch, shape_name] = trace_cell(arch, shape_name, step, device)
-    stats, trace_s = traces[arch, shape_name]
-    # the plain step at global shapes counts the whole mesh's work
+    sharded = shards_on(cfg, mesh)
+    key = (arch, shape_name) + ((tuple(mesh.shape),) if sharded else ())
+    if key not in traces:
+        traces[key] = trace_cell(arch, shape_name, step, device, mesh)
+    stats, trace_s = traces[key]
     chips = mesh.size()
+    # a rank's counts times the chips; the plain step's are the mesh's
+    per_chip = chips if sharded else 1
     roof = analysis.Roofline(
-        flops=stats.flops, bytes_accessed=stats.bytes_traffic,
-        coll_bytes=None, chips=chips,
-        model_flops=analysis.model_flops(cfg, shape))
+        flops=stats.flops * per_chip,
+        bytes_accessed=stats.bytes_traffic * per_chip,
+        coll_bytes=stats.coll_bytes * chips if sharded else None,
+        chips=chips, model_flops=analysis.model_flops(cfg, shape))
 
     result = {
         "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "chips": chips, "device": device,
         "lower_s": round(t_build, 1), "trace_s": round(trace_s, 1),
-        "collectives": None,
-        "n_collectives": None,
+        "collectives": stats.coll_by_kind if sharded else None,
+        "n_collectives": stats.n_collectives if sharded else None,
+        "collectives_unknown": None if sharded else multi_device_gap(cfg),
+        "flops_per_chip": stats.flops if sharded else None,
+        "bytes_per_chip": stats.bytes_traffic if sharded else None,
+        "coll_bytes_per_chip": stats.coll_bytes if sharded else None,
         "unknown_loops": stats.unknown_loops,
         "resident_gb_per_chip": round(resident_gb, 3),
         "xla_cost_analysis": None,
@@ -235,13 +299,24 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
               f"({chips} chips, fake {device} tensors) ==")
         print("resident GB/chip (params+state+cache, sharded): "
               f"{resident_gb:.2f}")
-        print("plain step: flops=%.3e bytes=%.3e (whole mesh; traced in "
-              "%.1fs; collectives unknown until the sharded step runs)"
-              % (stats.flops, stats.bytes_traffic, trace_s))
-        print("roofline: compute=%.4fs memory=%.4fs collective=unknown "
-              "bottleneck=%s useful=%.2f roofline_frac=%.3f" %
-              (roof.t_compute, roof.t_memory, roof.bottleneck,
-               roof.useful_flops_ratio, roof.roofline_fraction))
+        if sharded:
+            print("one rank's sharded step: flops/chip=%.3e bytes/chip=%.3e"
+                  " coll/chip=%.3e (%d collectives; traced in %.1fs)"
+                  % (stats.flops, stats.bytes_traffic, stats.coll_bytes,
+                     stats.n_collectives, trace_s))
+            print("roofline: compute=%.4fs memory=%.4fs collective=%.4fs "
+                  "bottleneck=%s useful=%.2f roofline_frac=%.3f" %
+                  (roof.t_compute, roof.t_memory, roof.t_collective,
+                   roof.bottleneck, roof.useful_flops_ratio,
+                   roof.roofline_fraction))
+        else:
+            print("plain step: flops=%.3e bytes=%.3e (whole mesh; traced in "
+                  "%.1fs; collectives unknown: Queue 1 F6)"
+                  % (stats.flops, stats.bytes_traffic, trace_s))
+            print("roofline: compute=%.4fs memory=%.4fs collective=unknown "
+                  "bottleneck=%s useful=%.2f roofline_frac=%.3f" %
+                  (roof.t_compute, roof.t_memory, roof.bottleneck,
+                   roof.useful_flops_ratio, roof.roofline_fraction))
     return result
 
 
@@ -299,7 +374,7 @@ def main(argv=None) -> None:
     results, failures = [], []
     try:
         built = {mp: production_mesh(mp, args.device) for mp in meshes}
-        traces = {}  # one trace serves both meshes
+        traces = {}  # a plain trace serves both meshes
         for arch, shape in cells:
             for mp in meshes:
                 try:

@@ -24,8 +24,10 @@ calls ``jax.distributed.initialize``; the port runs one rank per card
 where JAX runs one process per host.  The store's data plane runs where
 the trainer runs: the CUDA kernels on the card, the ``"numpy"`` engine
 with ``--device cpu``.  It runs on CUDA unless ``--device cpu`` is
-given, and fails without a card.  The models compute on a mesh of one
-device (ROADMAP.md, Queue 1 F5).
+given, and fails without a card.  On a group of n ranks the host mesh
+is (n, 1): data parallelism with the optimizer state ZeRO-1 over the
+ranks (the MoE, MLA and hybrid configs raise there: ROADMAP.md, Queue 1
+F6).
 """
 
 from __future__ import annotations

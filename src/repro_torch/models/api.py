@@ -29,16 +29,18 @@ _FAMILIES = {"ssm": MambaLM, "hybrid": HybridLM, "encdec": EncDecLM}
 
 
 def get_model(cfg: ModelConfig, remat: bool = True, shard_act=None,
-              remat_policy: str | None = None) -> LM:
+              remat_policy: str | None = None, par=None) -> LM:
     """The config's model class: ``MambaLM``, ``HybridLM``, ``EncDecLM``,
     or ``TransformerLM`` for the dense, MoE and VLM families.
     ``shard_act``: None, or the activation-sharding hook
     (``MeshRules.act_sharder()``).  ``remat_policy``: None or
     ``"nothing"`` (recompute every layer activation) or ``"dots"`` (keep
-    the matmul outputs)."""
+    the matmul outputs).  ``par``: None, or this rank's place on a mesh
+    (``distributed.collectives.Par``): the model then computes on this
+    rank's shards (``base.LM``)."""
     cls = _FAMILIES.get(cfg.family, TransformerLM)
     return cls(cfg, remat=remat, remat_policy=remat_policy,
-               shard_act=shard_act)
+               shard_act=shard_act, par=par)
 
 
 # ---------------------------------------------------------------------------

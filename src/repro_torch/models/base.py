@@ -43,11 +43,19 @@ class LM(nn.Module):
     (``layers.moe``).  ``shard_act``: None, or the activation-sharding
     hook of a distributed run (``MeshRules.act_sharder()``), applied to
     the (B, S, D) input of every layer of the full-sequence pass, where
-    the reference applies it.
+    the reference applies it.  ``par``: None, or this rank's place on a
+    mesh (``distributed.collectives.Par``) whose ``model`` axis holds
+    more than one device: the model then runs on this rank's shards of
+    the parameters and the caches and holds the tensor-parallel
+    collectives itself (the embedding over a V shard, column- and
+    row-parallel projections, caches of this rank's KV heads or slots).
+    Without it, or with a ``model`` axis of one, every op is the one the
+    model runs without a mesh.
     """
 
     def __init__(self, cfg, remat: bool = True,
-                 remat_policy: str | None = None, shard_act=None) -> None:
+                 remat_policy: str | None = None, shard_act=None,
+                 par=None) -> None:
         super().__init__()
         if remat_policy not in (None, "nothing", "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
@@ -55,6 +63,7 @@ class LM(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.shard_act = shard_act
+        self.par = par if par is not None and par.model_size > 1 else None
         self.moe_log: list | None = None
 
     def param_shapes(self) -> dict:
@@ -94,7 +103,89 @@ class LM(nn.Module):
 
     def _logits(self, params, x):
         """Final norm, then logits against ``unembed`` (``embed`` where
-        the embeddings are tied)."""
+        the embeddings are tied): this rank's V shard of them where the
+        table shards over ``model``."""
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        vp = self._tp(self.cfg.vocab_size)
+        if vp is not None:
+            x = vp.copy_to_model(x)
         return torch.einsum("bsd,vd->bsv", x,
                             params.get("unembed", params["embed"]))
+
+    # ------------------------------------------------ tensor parallel --
+    def _tp(self, n: int):
+        """``par`` where a dim of ``n`` shards over ``model``, else None."""
+        return self.par if self.par is not None and self.par.tp(n) \
+            else None
+
+    def _heads(self):
+        """``par`` where the attention's query heads shard over
+        ``model``, else None."""
+        return self._tp(self.cfg.h_store)
+
+    def _slots(self):
+        """``par`` where the attention caches shard their slots over
+        ``model`` (KV does not divide it: ``MeshRules.cache_spec``), else
+        None."""
+        return self.par if self.par is not None \
+            and not self.par.tp(self.cfg.kv_store) else None
+
+    def _slot_range(self, t_local: int) -> tuple[int, int]:
+        """[start, stop) of the cache slots this rank holds, of a cache
+        of ``t_local`` slots a rank."""
+        sp = self._slots()
+        if sp is None:
+            return 0, t_local
+        r = sp.model.rank
+        return r * t_local, (r + 1) * t_local
+
+    def _local_slots(self, T: int) -> int:
+        """Slots a rank holds of a cache of ``T``: all of them, or T / m
+        in the sequence-sharded layout (which needs m to divide T)."""
+        sp = self._slots()
+        if sp is None:
+            return T
+        if T % sp.model_size:
+            raise ValueError(f"a cache of {T} slots does not shard over "
+                             f"{sp.model_size} devices")
+        return T // sp.model_size
+
+    def _local_kv(self) -> int:
+        """KV heads a rank's cache holds."""
+        hp = self._heads()
+        return self.cfg.kv_store // hp.model_size \
+            if hp is not None and hp.tp(self.cfg.kv_store) \
+            else self.cfg.kv_store
+
+    def _fill(self, slots: torch.Tensor, entry: torch.Tensor) -> None:
+        """Writes the entries (B, S, ...) of positions [0, S) into the
+        cache slots (B, T, ...) this rank holds."""
+        t0, t1 = self._slot_range(slots.shape[1])
+        n = max(0, min(t1, entry.shape[1]) - t0)
+        slots[:, :n] = entry[:, t0:t0 + n]
+
+    def _lookup(self, table, tokens):
+        """``table[tokens]``: where the table shards V over ``model``,
+        this rank's rows (the others zero), summed over ``model``."""
+        vp = self._tp(self.cfg.vocab_size)
+        if vp is None:
+            return table[tokens]
+        lo, hi = vp.model.chunk(self.cfg.vocab_size)
+        idx = tokens - lo
+        inside = (idx >= 0) & (idx < hi - lo)
+        x = table[torch.where(inside, idx, 0)]
+        return vp.reduce_from_model(torch.where(inside[..., None], x, 0))
+
+    def _attend_cached(self, h, p, *, k, v, q_pos, kv_pos, window=0,
+                       causal: bool = True, cached: bool = False):
+        """GQA attention of ``h`` over ``k`` / ``v``: with ``cached``, a
+        cache whose slots may shard over ``model``
+        (``layers.gqa_attend_slots``)."""
+        sp = self._slots() if cached else None
+        if sp is not None:
+            return L.gqa_attend_slots(h, p, self.cfg, k=k, v=v, q_pos=q_pos,
+                                      kv_pos=kv_pos, slots=sp, window=window,
+                                      causal=causal, heads=self._heads())
+        return L.gqa_attend(h, p, self.cfg, k=k, v=v, q_pos=q_pos,
+                            kv_pos=kv_pos, window=window, causal=causal,
+                            par=self._heads())

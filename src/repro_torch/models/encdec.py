@@ -86,11 +86,11 @@ class EncDecLM(LM):
     def _enc_block(self, x, p, pos):
         cfg = self.cfg
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        k, v = L.gqa_project_kv(h, p["attn"], cfg, pos)
-        x = x + L.gqa_attend(h, p["attn"], cfg, k=k, v=v, q_pos=pos,
-                             kv_pos=pos, causal=False)
+        k, v = L.gqa_project_kv(h, p["attn"], cfg, pos, self._heads())
+        x = x + self._attend_cached(h, p["attn"], k=k, v=v, q_pos=pos,
+                                    kv_pos=pos, causal=False)
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + L.mlp(h2, p["mlp"], cfg.act)
+        return x + L.mlp(h2, p["mlp"], cfg.act, self._tp(cfg.d_ff))
 
     def encode(self, params, frames):
         """frames: (B, S_enc, D) stub embeddings -> encoder output."""
@@ -105,28 +105,35 @@ class EncDecLM(LM):
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     # ----------------------------------------------------------- decode ----
-    def _dec_block(self, x, p, enc_kv, q_pos, kv_pos, self_kv):
+    def _dec_block(self, x, p, enc_kv, q_pos, kv_pos, self_kv,
+                   cached: bool = False):
+        """One decoder layer; ``cached``: ``self_kv`` and ``enc_kv`` are
+        this rank's cache slots (a decode step), else whole."""
         cfg = self.cfg
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         k, v = self_kv
-        x = x + L.gqa_attend(h, p["self_attn"], cfg, k=k, v=v, q_pos=q_pos,
-                             kv_pos=kv_pos)
+        x = x + self._attend_cached(h, p["self_attn"], k=k, v=v,
+                                    q_pos=q_pos, kv_pos=kv_pos, cached=cached)
         hx = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
         ek, ev = enc_kv
-        enc_pos = torch.arange(ek.shape[1], device=x.device)
-        x = x + L.gqa_attend(hx, p["cross_attn"], cfg, k=ek, v=ev,
-                             q_pos=q_pos, kv_pos=enc_pos, causal=False)
+        e0, e1 = self._slot_range(ek.shape[1]) if cached \
+            else (0, ek.shape[1])
+        enc_pos = torch.arange(e0, e1, device=x.device)
+        x = x + self._attend_cached(hx, p["cross_attn"], k=ek, v=ev,
+                                    q_pos=q_pos, kv_pos=enc_pos,
+                                    causal=False, cached=cached)
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + L.mlp(h2, p["mlp"], cfg.act)
+        return x + L.mlp(h2, p["mlp"], cfg.act, self._tp(cfg.d_ff))
 
     def _dec_layer(self, x, p, enc, pos):
         """One decoder layer over the full sequence -> (x, its self k/v,
         its cross k/v)."""
         cfg = self.cfg
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        k, v = L.gqa_project_kv(h, p["self_attn"], cfg, pos)
+        k, v = L.gqa_project_kv(h, p["self_attn"], cfg, pos, self._heads())
         enc_pos = torch.arange(enc.shape[1], device=x.device)
-        ek, ev = L.gqa_project_kv(enc, p["cross_attn"], cfg, enc_pos)
+        ek, ev = L.gqa_project_kv(enc, p["cross_attn"], cfg, enc_pos,
+                                  self._heads())
         return self._dec_block(x, p, (ek, ev), pos, pos, (k, v)), (k, v), \
             (ek, ev)
 
@@ -135,7 +142,7 @@ class EncDecLM(LM):
 
     def _embed(self, params, tokens):
         S = tokens.shape[1]
-        return params["embed"][tokens] \
+        return self._lookup(params["embed"], tokens) \
             + sinusoid(S, self.cfg.d_model, tokens.device)[None]
 
     def _backbone(self, params, batch):
@@ -156,16 +163,20 @@ class EncDecLM(LM):
         """Next-token CE of the decoder, chunked over the sequence."""
         x = self._backbone(params, batch)
         return chunked_ce(x, params["embed"], params["final_norm"],
-                          batch["tokens"], self.cfg.norm_eps)
+                          batch["tokens"], self.cfg.norm_eps,
+                          par=self._tp(self.cfg.vocab_size))
 
     # ------------------------------------------------------------ cache ----
     def init_cache(self, B: int, T: int, enc_len: int = 0,
                    device=None) -> dict:
         """Zeroed bf16 cache: self-attention k/v (L, B, T, KV, hd) and
-        cross-attention ``ek`` / ``ev`` (L, B, enc_len, KV, hd)."""
+        cross-attention ``ek`` / ``ev`` (L, B, enc_len, KV, hd); on a mesh,
+        this rank's KV heads or slots."""
         cfg = self.cfg
-        shape = (cfg.n_layers, B, T, cfg.kv_store, cfg.head_dim)
-        enc_shape = (cfg.n_layers, B, enc_len, cfg.kv_store, cfg.head_dim)
+        kv = self._local_kv()
+        shape = (cfg.n_layers, B, self._local_slots(T), kv, cfg.head_dim)
+        enc_shape = (cfg.n_layers, B, self._local_slots(enc_len), kv,
+                     cfg.head_dim)
         return {name: torch.zeros(s, dtype=torch.bfloat16, device=device)
                 for name, s in (("k", shape), ("v", shape),
                                 ("ek", enc_shape), ("ev", enc_shape))}
@@ -182,8 +193,8 @@ class EncDecLM(LM):
         for i in range(self.cfg.n_layers):
             x, (k, v), (ek, ev) = self._dec_layer(
                 x, self._layer(params, i, "dec_layers"), enc, pos)
-            cache["k"][i, :, :S], cache["v"][i, :, :S] = k, v
-            cache["ek"][i], cache["ev"][i] = ek, ev
+            for name, entry in (("k", k), ("v", v), ("ek", ek), ("ev", ev)):
+                self._fill(cache[name][i], entry)
         return self._logits(params, x[:, -1:, :])[:, 0], cache
 
     def decode_step(self, params, cache, token, pos: int):
@@ -192,18 +203,20 @@ class EncDecLM(LM):
         returned."""
         cfg = self.cfg
         pos = int(pos)
-        x = params["embed"][token] \
+        x = self._lookup(params["embed"], token) \
             + sinusoid_at(pos, cfg.d_model, token.device)[None, None]
-        T = cache["k"].shape[2]
+        t0, t1 = self._slot_range(cache["k"].shape[2])
         q_pos = torch.tensor([pos], device=x.device)
-        kv_pos = torch.arange(T, device=x.device)
+        kv_pos = torch.arange(t0, t1, device=x.device)
         for i in range(cfg.n_layers):
             p = self._layer(params, i, "dec_layers")
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            k_new, v_new = L.gqa_project_kv(h, p["self_attn"], cfg, q_pos)
-            cache["k"][i, :, pos] = k_new[:, 0]
-            cache["v"][i, :, pos] = v_new[:, 0]
+            k_new, v_new = L.gqa_project_kv(h, p["self_attn"], cfg, q_pos,
+                                            self._heads())
+            if t0 <= pos < t1:
+                cache["k"][i, :, pos - t0] = k_new[:, 0]
+                cache["v"][i, :, pos - t0] = v_new[:, 0]
             x = self._dec_block(x, p, (cache["ek"][i], cache["ev"][i]),
                                 q_pos, kv_pos,
-                                (cache["k"][i], cache["v"][i]))
+                                (cache["k"][i], cache["v"][i]), cached=True)
         return self._logits(params, x)[:, 0], cache

@@ -214,12 +214,18 @@ def _attention_blockwise(q, k, v, *, q_pos, kv_pos, window, causal, scale):
 
 
 # ------------------------------------------------------------------ MLP ----
-def mlp(x, p: Params, act: str = "swiglu"):
+def mlp(x, p: Params, act: str = "swiglu", par=None):
+    """SwiGLU or GELU MLP.  ``par``: the tensor-parallel context where F
+    shards over ``model`` (``wg`` / ``wu`` column-, ``wd`` row-parallel:
+    the output all-reduced); None where the weights are whole."""
+    if par is not None:
+        x = par.copy_to_model(x)
     if act == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     else:  # gelu
         h = F.gelu(x @ p["wg"], approximate="tanh")
-    return h @ p["wd"]
+    y = h @ p["wd"]
+    return y if par is None else par.reduce_from_model(y)
 
 
 def mlp_shapes(d_model, d_ff, act: str = "swiglu") -> dict:
@@ -276,9 +282,42 @@ def gqa_init(gen, cfg, dtype=torch.bfloat16):
                            for name, shape in gqa_shapes(cfg).items()}, cfg)
 
 
-def gqa_project_kv(x, p, cfg, positions):
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+def local_head_mask(cfg, par=None) -> torch.Tensor | None:
+    """``head_mask`` of this rank's query heads (all of them without a
+    tensor-parallel context)."""
+    hm = head_mask(cfg)
+    if hm is None or par is None:
+        return hm
+    h0, h1 = par.model.chunk(cfg.h_store)
+    return hm[h0:h1]
+
+
+def kv_of_heads(cfg, par) -> tuple[int, int]:
+    """[start, stop) of the KV heads that this rank's query heads attend,
+    where ``wk`` / ``wv`` are replicated (KV does not divide ``model``):
+    rank r holds query heads [h0, h1) of groups of G = H / KV."""
+    h0, h1 = par.model.chunk(cfg.h_store)
+    G = cfg.h_store // cfg.kv_store
+    kv0, kv1 = h0 // G, (h1 - 1) // G + 1
+    if (h1 - h0) % (kv1 - kv0):
+        raise ValueError(f"{h1 - h0} query heads a rank do not group over "
+                         f"{kv1 - kv0} KV heads")
+    return kv0, kv1
+
+
+def gqa_project_kv(x, p, cfg, positions, par=None):
+    """The layer's keys and values (B, S, KV, hd), rotated.  ``par``:
+    the tensor-parallel context where the query heads shard over
+    ``model``; ``wk`` / ``wv`` then hold this rank's KV heads, or, where
+    KV does not divide ``model``, all of them (each rank uses its own
+    groups, so their gradients are summed over ``model``)."""
+    wk, wv = p["wk"], p["wv"]
+    if par is not None:
+        x = par.copy_to_model(x)
+        if not par.tp(cfg.kv_store):
+            wk, wv = par.copy_to_model(wk), par.copy_to_model(wv)
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     if cfg.use_rope:
         k = rope(k, positions, cfg.rope_theta)
     return k, v
@@ -293,17 +332,69 @@ def gqa_query(x, p, cfg, q_pos):
     return q
 
 
-def gqa_attend(x, p, cfg, *, k, v, q_pos, kv_pos, window=0, causal=True):
-    q = gqa_query(x, p, cfg, q_pos)
-    out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
-                    causal=causal)
-    hm = head_mask(cfg)
+def _heads_out(out, p, cfg, par):
+    """Attention output (B, S, H, dv) of this rank's heads -> (B, S, D):
+    masked to the real heads, through ``wo`` (row-parallel under
+    ``par``: all-reduced over ``model``)."""
+    hm = local_head_mask(cfg, par)
     if hm is not None:
         out = out * hm.to(out.device, out.dtype)[None, None, :, None]
     # a bf16 cache under fp32 weights: promote, as jnp.einsum does
     wo = p["wo"]
     out = out.to(torch.promote_types(out.dtype, wo.dtype))
-    return torch.einsum("bshk,hkd->bsd", out, wo.to(out.dtype))
+    y = torch.einsum("bshk,hkd->bsd", out, wo.to(out.dtype))
+    return y if par is None else par.reduce_from_model(y)
+
+
+def gqa_attend(x, p, cfg, *, k, v, q_pos, kv_pos, window=0, causal=True,
+               par=None):
+    """GQA attention of ``x``'s queries over ``k`` / ``v``, through
+    ``wo``.  ``par``: as ``gqa_project_kv``'s; with all KV heads in
+    ``k`` / ``v`` the rank attends its query heads' own groups."""
+    if par is not None:
+        x = par.copy_to_model(x)
+        if not par.tp(cfg.kv_store):
+            kv0, kv1 = kv_of_heads(cfg, par)
+            k, v = k[:, :, kv0:kv1], v[:, :, kv0:kv1]
+    q = gqa_query(x, p, cfg, q_pos)
+    out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
+                    causal=causal)
+    return _heads_out(out, p, cfg, par)
+
+
+def gqa_attend_slots(x, p, cfg, *, k, v, q_pos, kv_pos, slots, window=0,
+                     causal=True, heads=None):
+    """GQA attention over a cache whose slots shard over ``model`` (the
+    flash-decoding layout, where KV does not divide it): ``k`` / ``v``
+    (B, T/m, KV, hd) hold every KV head of this rank's slots, at the
+    absolute positions ``kv_pos``.  The queries of every head are
+    gathered over ``model`` (``heads``: the tensor-parallel context where
+    the query heads shard; None where each rank has them all); each rank
+    takes every head's softmax over its slots, the maximum and the sum
+    all-reduced (``slots``: the context of the slot sharding) before the
+    probabilities are rounded, as the reference rounds them, and P.V
+    summed in fp32; then each rank keeps its own heads.  The cache is
+    never gathered."""
+    q = gqa_query(x, p, cfg, q_pos)
+    if heads is not None:
+        q = heads.gather(q, 2, "model")
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, dh)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) \
+        * (1.0 / np.sqrt(dh))
+    scores = torch.where(_mask(q_pos, kv_pos, window, causal), scores,
+                         NEG_INF)
+    mx = slots.max_over_model(scores.amax(dim=-1, keepdim=True))
+    e = torch.exp(scores - mx)
+    prob = e / slots.reduce_from_model(e.sum(dim=-1, keepdim=True))
+    out = torch.einsum("bkgst,btkh->bskgh", prob.to(v.dtype).float(),
+                       v.float())
+    out = slots.reduce_from_model(out).to(v.dtype).reshape(
+        B, S, H, v.shape[-1])
+    if heads is not None:
+        out = heads.shard(out, 2, "model")
+    return _heads_out(out, p, cfg, heads)
 
 
 # --------------------------------------------------------------- einsum ----
@@ -559,13 +650,22 @@ def mamba_init(gen, cfg, dtype=torch.bfloat16) -> Params:
         for name, shape in mamba_shapes(cfg).items()}
 
 
-def _mamba_inputs(x, p, cfg, conv_state=None):
+def _mamba_inputs(x, p, cfg, conv_state=None, par=None):
     """Shared projections.  Returns (x_conv, z, dt, Bp, Cp,
     new_conv_state).  The causal depthwise conv runs in fp32 over the
     history in ``x``'s dtype: a decode step's fp32 conv state is rounded
-    to it first, as the reference rounds it."""
+    to it first, as the reference rounds it.  ``par``: the
+    tensor-parallel context where d_inner shards over ``model``: the
+    ``in_proj`` output is exchanged so that each rank holds x and z of
+    its own d_inner chunk (``Par.exchange_halves``), ``x_proj`` is
+    row-parallel (its output all-reduced, then used whole by every
+    rank), and the rest is this rank's channels."""
     K = cfg.ssm_conv
-    x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)  # (B, S, Di)
+    if par is None:
+        xz = x @ p["in_proj"]
+    else:
+        xz = par.exchange_halves(par.copy_to_model(x) @ p["in_proj"])
+    x_in, z = torch.chunk(xz, 2, dim=-1)  # (B, S, Di)
     if conv_state is None:
         hist = F.pad(x_in, (0, 0, K - 1, 0))
     else:
@@ -578,9 +678,19 @@ def _mamba_inputs(x, p, cfg, conv_state=None):
     x_conv = F.silu(conv).to(x.dtype)
 
     R, N = cfg.dt_rank, cfg.ssm_state
-    dt_r, Bp, Cp = torch.split(x_conv @ p["x_proj"], [R, N, N], dim=-1)
+    dbc = x_conv @ p["x_proj"]
+    if par is not None:
+        dbc = par.copy_to_model(par.reduce_from_model(dbc))
+    dt_r, Bp, Cp = torch.split(dbc, [R, N, N], dim=-1)
     dt = F.softplus(dt_r.float() @ p["dt_proj"] + p["dt_bias"])  # fp32
     return x_conv, z, dt, Bp.float(), Cp.float(), new_conv_state
+
+
+def _mamba_out(y, p, par):
+    """The gated scan output through ``out_proj`` (row-parallel under
+    ``par``: all-reduced over ``model``)."""
+    y = y @ p["out_proj"]
+    return y if par is None else par.reduce_from_model(y)
 
 
 def _scan_chunk(a: torch.Tensor, b: torch.Tensor):
@@ -599,7 +709,7 @@ def _scan_chunk(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def mamba_scan(x, p, cfg, h0=None, conv_state=None):
+def mamba_scan(x, p, cfg, h0=None, conv_state=None, par=None):
     """Chunked selective scan.  x: (B, S, D) -> (y, h_final, conv_tail).
 
     A loop over chunks of ``SSM_CHUNK`` tokens carries the fp32 state
@@ -607,11 +717,13 @@ def mamba_scan(x, p, cfg, h0=None, conv_state=None):
     (B, c, Di, N) transient, in ``cfg.ssm_compute_dtype``.  The reference
     pads the last chunk with zeros after the softplus (a = 1, b = 0: the
     state holds); here the last chunk is simply shorter, which gives the
-    same state.
+    same state.  ``par``: as ``_mamba_inputs``'s (the state then holds
+    this rank's Di / m channels).
     """
     B, S, _ = x.shape
-    Di, N = cfg.d_inner, cfg.ssm_state
-    x_conv, z, dt, Bp, Cp, conv_tail = _mamba_inputs(x, p, cfg, conv_state)
+    x_conv, z, dt, Bp, Cp, conv_tail = _mamba_inputs(x, p, cfg, conv_state,
+                                                     par)
+    Di, N = x_conv.shape[-1], cfg.ssm_state
     A = -torch.exp(p["A_log"])  # (Di, N)
     cdt = torch.bfloat16 if cfg.ssm_compute_dtype == "bf16" \
         else torch.float32
@@ -631,13 +743,15 @@ def mamba_scan(x, p, cfg, h0=None, conv_state=None):
         del a, b, a_sc, b_sc, hs
     y = torch.cat(ys, dim=1) + p["D_skip"] * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], h, conv_tail
+    return _mamba_out(y, p, par), h, conv_tail
 
 
-def mamba_step(x, p, cfg, h, conv_state):
+def mamba_step(x, p, cfg, h, conv_state, par=None):
     """Single-token decode.  x: (B, 1, D); h: (B, Di, N) fp32;
-    conv_state: (B, K-1, Di) fp32.  Returns (y, h_new, conv_state_new)."""
-    x_conv, z, dt, Bp, Cp, new_conv = _mamba_inputs(x, p, cfg, conv_state)
+    conv_state: (B, K-1, Di) fp32.  Returns (y, h_new, conv_state_new).
+    ``par``: as ``_mamba_inputs``'s."""
+    x_conv, z, dt, Bp, Cp, new_conv = _mamba_inputs(x, p, cfg, conv_state,
+                                                    par)
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt[:, 0, :, None] * A)  # (B, Di, N)
     b = (dt[:, 0] * x_conv[:, 0].float())[..., None] * Bp[:, 0, None, :]
@@ -645,4 +759,4 @@ def mamba_step(x, p, cfg, h, conv_state):
     y = torch.einsum("bdn,bn->bd", h_new, Cp[:, 0])[:, None, :]
     y = y + p["D_skip"] * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], h_new, new_conv
+    return _mamba_out(y, p, par), h_new, new_conv

@@ -37,11 +37,12 @@ class MambaLM(LM):
     def _block(self, x, p):
         x = self._act(x)
         h = L.rms_norm(x, p["ln"], self.cfg.norm_eps)
-        return x + L.mamba_scan(h, p["mixer"], self.cfg)[0]
+        return x + L.mamba_scan(h, p["mixer"], self.cfg,
+                                par=self._tp(self.cfg.d_inner))[0]
 
     # ---------------------------------------------------------- forward ----
     def _backbone(self, params, batch):
-        x = params["embed"][batch["tokens"]]
+        x = self._lookup(params["embed"], batch["tokens"])
         for i in range(self.cfg.n_layers):
             x = self._checkpointed(self._block, x, self._layer(params, i))
         return x
@@ -55,30 +56,35 @@ class MambaLM(LM):
         x = self._backbone(params, batch)
         return chunked_ce(x, params.get("unembed", params["embed"]),
                           params["final_norm"], batch["tokens"],
-                          self.cfg.norm_eps)
+                          self.cfg.norm_eps,
+                          par=self._tp(self.cfg.vocab_size))
 
     # ------------------------------------------------------------ cache ----
     def init_cache(self, B: int, T: int, device=None) -> dict:
         """Zeroed fp32 state, O(1) in the sequence (``T`` unused): ``h``
-        (L, B, Di, N) and ``conv`` (L, B, K-1, Di)."""
+        (L, B, Di, N) and ``conv`` (L, B, K-1, Di); on a mesh, this
+        rank's Di / m channels."""
         cfg = self.cfg
         del T
-        return {"h": torch.zeros((cfg.n_layers, B, cfg.d_inner,
-                                  cfg.ssm_state), device=device),
-                "conv": torch.zeros((cfg.n_layers, B, cfg.ssm_conv - 1,
-                                     cfg.d_inner), device=device)}
+        tp = self._tp(cfg.d_inner)
+        Di = cfg.d_inner // tp.model_size if tp is not None else cfg.d_inner
+        return {"h": torch.zeros((cfg.n_layers, B, Di, cfg.ssm_state),
+                                 device=device),
+                "conv": torch.zeros((cfg.n_layers, B, cfg.ssm_conv - 1, Di),
+                                    device=device)}
 
     def prefill(self, params, batch, cache_len=None):
         """Scan the prompt; returns (last-position logits, the state after
         it)."""
         cfg = self.cfg
-        x = params["embed"][batch["tokens"]]
+        x = self._lookup(params["embed"], batch["tokens"])
         cache = self.init_cache(x.shape[0], 0, device=x.device)
+        tp = self._tp(cfg.d_inner)
         for i in range(cfg.n_layers):
             p = self._layer(params, i)
             h = L.rms_norm(x, p["ln"], cfg.norm_eps)
             y, cache["h"][i], cache["conv"][i] = L.mamba_scan(
-                h, p["mixer"], cfg)
+                h, p["mixer"], cfg, par=tp)
             x = x + y
         return self._logits(params, x[:, -1:, :])[:, 0], cache
 
@@ -87,11 +93,12 @@ class MambaLM(LM):
         and the same dict returned."""
         cfg = self.cfg
         del pos
-        x = params["embed"][token]
+        x = self._lookup(params["embed"], token)
+        tp = self._tp(cfg.d_inner)
         for i in range(cfg.n_layers):
             p = self._layer(params, i)
             h = L.rms_norm(x, p["ln"], cfg.norm_eps)
             y, cache["h"][i], cache["conv"][i] = L.mamba_step(
-                h, p["mixer"], cfg, cache["h"][i], cache["conv"][i])
+                h, p["mixer"], cfg, cache["h"][i], cache["conv"][i], par=tp)
             x = x + y
         return self._logits(params, x)[:, 0], cache

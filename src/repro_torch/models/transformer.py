@@ -72,7 +72,7 @@ class TransformerLM(LM):
 
     # ------------------------------------------------------------ embed ----
     def _embed(self, params, tokens, patches=None):
-        x = params["embed"][tokens]
+        x = self._lookup(params["embed"], tokens)
         if patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
@@ -83,7 +83,7 @@ class TransformerLM(LM):
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.n_experts:
             return x + L.moe(h2, p["ffn"], cfg, self.moe_log)
-        return x + L.mlp(h2, p["ffn"], cfg.act)
+        return x + L.mlp(h2, p["ffn"], cfg.act, self._tp(cfg.d_ff))
 
     def _attend(self, h, p, window: int, pos):
         """The layer's attention over the full sequence -> (its output,
@@ -93,9 +93,9 @@ class TransformerLM(LM):
             c, kr = L.mla_latent(h, p["attn"], cfg, pos)
             return L.mla_attend_naive(h, p["attn"], cfg, c=c, k_rope=kr,
                                       q_pos=pos, kv_pos=pos), (c, kr)
-        k, v = L.gqa_project_kv(h, p["attn"], cfg, pos)
-        return L.gqa_attend(h, p["attn"], cfg, k=k, v=v, q_pos=pos,
-                            kv_pos=pos, window=window), (k, v)
+        k, v = L.gqa_project_kv(h, p["attn"], cfg, pos, self._heads())
+        return self._attend_cached(h, p["attn"], k=k, v=v, q_pos=pos,
+                                   kv_pos=pos, window=window), (k, v)
 
     def _block(self, x, p, window: int, pos):
         """One decoder layer over the full sequence."""
@@ -129,7 +129,8 @@ class TransformerLM(LM):
         P = x.shape[1] - tokens.shape[1]  # prepended patch positions
         table = params.get("unembed", params["embed"])
         return chunked_ce(x, table, params["final_norm"], tokens,
-                          self.cfg.norm_eps, skip_prefix=P)
+                          self.cfg.norm_eps, skip_prefix=P,
+                          par=self._tp(self.cfg.vocab_size))
 
     # ------------------------------------------------------------ cache ----
     def _cache_names(self) -> tuple[str, str]:
@@ -139,14 +140,17 @@ class TransformerLM(LM):
         """Zeroed bf16 cache, as the reference's: whatever the weights'
         dtype, the cached entries are rounded to bf16.  GQA caches k/v
         (L, B, T, KV, hd); MLA its latent ``c`` (L, B, T, kv_lora_rank)
-        and rotated key part ``kr`` (L, B, T, qk_rope_head_dim)."""
+        and rotated key part ``kr`` (L, B, T, qk_rope_head_dim).  On a
+        mesh: this rank's KV heads, or its T / m slots (``B`` is the
+        local batch)."""
         cfg = self.cfg
         nl = cfg.n_layers
         if cfg.use_mla:
             shapes = ((nl, B, T, cfg.kv_lora_rank),
                       (nl, B, T, cfg.qk_rope_head_dim))
         else:
-            shapes = ((nl, B, T, cfg.kv_store, cfg.head_dim),) * 2
+            shapes = ((nl, B, self._local_slots(T), self._local_kv(),
+                       cfg.head_dim),) * 2
         return {name: torch.zeros(shape, dtype=torch.bfloat16, device=device)
                 for name, shape in zip(self._cache_names(), shapes)}
 
@@ -164,7 +168,7 @@ class TransformerLM(LM):
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
             att, entries = self._attend(h, p, window, pos)
             for name, entry in zip(names, entries):
-                cache[name][i, :, :S] = entry
+                self._fill(cache[name][i], entry)
             x = self._ffn(x + att, p)
         return self._logits(params, x[:, -1:, :])[:, 0], cache
 
@@ -175,30 +179,35 @@ class TransformerLM(LM):
         The new cache entries (GQA's k/v, MLA's c/kr) are written into
         ``cache`` in place at ``pos`` (the reference returns a new cache
         through ``dynamic_update_slice``); the returned cache is the same
-        dict.  MLA attends absorbed, against the latent cache itself.
+        dict.  MLA attends absorbed, against the latent cache itself.  In
+        the sequence-sharded layout only the rank that holds slot ``pos``
+        writes it.
         """
         cfg = self.cfg
         x = self._embed(params, token)
         names = self._cache_names()
-        T = cache[names[0]].shape[2]
+        t0, t1 = self._slot_range(cache[names[0]].shape[2])
         pos = int(pos)
         q_pos = torch.tensor([pos], device=x.device)
-        kv_pos = torch.arange(T, device=x.device)
+        kv_pos = torch.arange(t0, t1, device=x.device)
         for i, window in enumerate(self._windows()):
             p = self._layer(params, i)
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
             if cfg.use_mla:
                 entries = L.mla_latent(h, p["attn"], cfg, q_pos)
             else:
-                entries = L.gqa_project_kv(h, p["attn"], cfg, q_pos)
-            for name, entry in zip(names, entries):
-                cache[name][i, :, pos] = entry[:, 0]
+                entries = L.gqa_project_kv(h, p["attn"], cfg, q_pos,
+                                           self._heads())
+            if t0 <= pos < t1:
+                for name, entry in zip(names, entries):
+                    cache[name][i, :, pos - t0] = entry[:, 0]
             a, b = cache[names[0]][i], cache[names[1]][i]
             if cfg.use_mla:
                 att = L.mla_attend_absorbed(h, p["attn"], cfg, c=a, k_rope=b,
                                             q_pos=q_pos, kv_pos=kv_pos)
             else:
-                att = L.gqa_attend(h, p["attn"], cfg, k=a, v=b, q_pos=q_pos,
-                                   kv_pos=kv_pos, window=window)
+                att = self._attend_cached(h, p["attn"], k=a, v=b,
+                                          q_pos=q_pos, kv_pos=kv_pos,
+                                          window=window, cached=True)
             x = self._ffn(x + att, p)
         return self._logits(params, x)[:, 0], cache

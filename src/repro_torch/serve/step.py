@@ -13,17 +13,22 @@ The builders return the reference's tuples, with ``Sharding`` trees
 (mesh, DTensor placements, spec) in place of ``NamedSharding`` ones, and
 build at any mesh size.  Their ``fn`` takes DTensors in their input
 placements, runs the model on the local tensors and wraps the outputs in
-their output placements (``sharding.sharded``): on a mesh of one that
-is what the reference's GSPMD step computes.  On a larger mesh ``fn``
-raises ``NotImplementedError`` (ROADMAP.md, Queue 1 F5).  Decode writes
-the cache in place, as the port's models do.
+their output placements (``sharding.sharded``).  On a mesh of more than
+one device the model holds this rank's place on it
+(``distributed.collectives.Par``): it computes on its shards with
+explicit collectives, and FSDP leaves are all-gathered over the data
+plane at the start of each step; the MoE, MLA and hybrid configs raise
+``NotImplementedError`` there (``sharding.multi_device_gap``: ROADMAP.md,
+Queue 1 F6).  Decode writes the cache in place, as the port's models do.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import MeshRules, P, Sharding, sharded
+from repro_torch.distributed.collectives import Par
+from repro_torch.distributed.sharding import (MeshRules, P, Sharding,
+                                              multi_device_gap, sharded)
 from repro_torch.models import api
 from repro_torch.train.step import batch_shardings
 from repro_torch.tree import map_with_path
@@ -56,20 +61,35 @@ def build_prefill_step(cfg, rules: MeshRules, shape):
     has ``seq_len`` slots, or as many as the prompt fills if more (a
     VLM's patches come on top of its tokens), as the reference's.
     """
-    model = api.get_model(cfg, shard_act=rules.act_sharder())
+    model, gather, gap = _mesh_model(cfg, rules)
     B, S = shape.global_batch, shape.seq_len
 
     def prefill(params, batch):
         with torch.no_grad():
-            return model.prefill(params, batch, cache_len=S)
+            return model.prefill(gather(params), batch, cache_len=S)
 
     param_shapes = model.param_shapes()
     param_sh = rules.params_shardings(param_shapes)
     batch_sh = batch_shardings(cfg, rules)
     cache_sh = cache_shardings(cfg, api.cache_specs(cfg, shape), rules, B)
     out_sh = (_logits_sharding(cfg, rules, B), cache_sh)
-    return (sharded(prefill, out_sh, rules.mesh), (param_sh, batch_sh),
+    return (sharded(prefill, out_sh, rules.mesh, gap), (param_sh, batch_sh),
             out_sh, param_shapes)
+
+
+def _mesh_model(cfg, rules: MeshRules):
+    """(the model, the FSDP gather of its parameters, the reason it
+    cannot run on the mesh or None): on a mesh of more than one device
+    the model computes on this rank's shards."""
+    par = Par.of(rules.mesh)
+    gap = multi_device_gap(cfg) if par is not None else None
+    if gap is not None:
+        par = None
+    model = api.get_model(cfg, shard_act=rules.act_sharder(), par=par)
+    if par is None:
+        return model, lambda params: params, gap
+    specs = rules.params_pspecs(model.param_shapes())
+    return model, lambda params: par.gather_fsdp(params, specs), gap
 
 
 def _logits_sharding(cfg, rules: MeshRules, batch: int) -> Sharding:
@@ -89,12 +109,12 @@ def build_decode_step(cfg, rules: MeshRules, shape):
     fn(params, cache, token, pos) -> (logits (B, V), cache), the new
     entries written into ``cache`` in place.
     """
-    model = api.get_model(cfg, shard_act=rules.act_sharder())
+    model, gather, gap = _mesh_model(cfg, rules)
     B = shape.global_batch
 
     def decode(params, cache, token, pos):
         with torch.no_grad():
-            return model.decode_step(params, cache, token, pos)
+            return model.decode_step(gather(params), cache, token, pos)
 
     param_sh = rules.params_shardings(model.param_shapes())
     cache_shapes = api.cache_specs(cfg, shape)
@@ -104,7 +124,8 @@ def build_decode_step(cfg, rules: MeshRules, shape):
     pos_sh = Sharding.of(rules.mesh, P())
     out_sh = (_logits_sharding(cfg, rules, B), cache_sh)
     in_sh = (param_sh, cache_sh, tok_sh, pos_sh)
-    return sharded(decode, out_sh, rules.mesh), in_sh, out_sh, cache_shapes
+    return (sharded(decode, out_sh, rules.mesh, gap), in_sh, out_sh,
+            cache_shapes)
 
 
 def rules_dsize(rules: MeshRules) -> int:

@@ -97,6 +97,50 @@ def state_shapes(param_shapes, cfg: AdamWConfig):
     return tree_map(lambda t: Spec(tuple(t.shape), t.dtype), init(meta, cfg))
 
 
+class Int8Blocks:
+    """The int8 first moment of one leaf on a mesh, quantized in the
+    whole tensor's blocks of ``QBLOCK`` along the last dim.
+
+    The optimizer state's shardings are the reference's: the master
+    copy's last dim may shard over a plane (``m_entry``) in slices that
+    are not whole blocks, the padded ``q`` over the same plane or none
+    (``q_entry``), and ``scale`` over it only where its block count
+    divides (``s_entry``: else replicated).  Where all three agree and a
+    slice is whole blocks, a rank quantizes its slice alone; elsewhere
+    it gathers ``q`` and ``scale`` to dequantize, and the updated moment
+    to quantize, along the last dim, and keeps its own slices, so that
+    every block's scale is the maximum over the whole block."""
+
+    def __init__(self, n: int, m_entry, q_entry, s_entry, par) -> None:
+        self.n, self.par = n, par
+        self.entries = (m_entry, q_entry, s_entry)
+        self.aligned = m_entry == q_entry == s_entry and (
+            m_entry is None
+            or n % (QBLOCK * par.plane(m_entry).size) == 0)
+
+    def dequantize(self, d: dict, shape) -> torch.Tensor:
+        """The fp32 moment of this rank's master slice (``shape``)."""
+        if self.aligned:
+            return _dequantize(d, shape)
+        m_entry, q_entry, s_entry = self.entries
+        # int8 crosses as bf16 (exact for |q| <= 127)
+        q = self.par.gather(d["q"].to(torch.bfloat16), -1, q_entry)
+        scale = self.par.gather(d["scale"], -1, s_entry)
+        full = _dequantize({"q": q.to(torch.int8), "scale": scale},
+                           tuple(shape[:-1]) + (self.n,))
+        return self.par.shard(full, -1, m_entry)
+
+    def quantize(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """``_quantize`` of the whole moment, this rank's slices of it."""
+        if self.aligned:
+            return _quantize(x)
+        m_entry, q_entry, s_entry = self.entries
+        d = _quantize(self.par.gather(x, -1, m_entry))
+        return {"q": self.par.shard(d["q"], -1, q_entry).contiguous(),
+                "scale": self.par.shard(d["scale"], -1, s_entry)
+                .contiguous()}
+
+
 def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                           for _, g in flatten_with_path(grads)))
@@ -109,19 +153,28 @@ def _at(tree, path: tuple):
 
 
 @torch.no_grad()
-def apply(state, grads, cfg: AdamWConfig):
-    """One AdamW update.  Returns (new_state, new bf16 params)."""
+def apply(state, grads, cfg: AdamWConfig, gnorm=None, blocks=None):
+    """One AdamW update.  Returns (new_state, new bf16 params).
+
+    On a mesh (the train step's): ``state`` and ``grads`` are this
+    rank's slices of them, ``gnorm`` the global norm of the whole
+    gradients, and ``blocks`` a tree of ``Int8Blocks`` at the
+    parameters' paths for int8 moments (None: each slice is whole
+    blocks)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
-    gnorm = _global_norm(grads)
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                        max=1.0)
 
     def upd(path, master):
         m, v = _at(state["m"], path), _at(state["v"], path)
         g = _at(grads, path).to(torch.float32) * clip
+        quant = (_quantize, _dequantize) if blocks is None else (
+            _at(blocks, path).quantize, _at(blocks, path).dequantize)
         if cfg.moment_dtype == "int8":
-            m_f = _dequantize(m, master.shape)
+            m_f = quant[1](m, master.shape)
         else:
             m_f = m
         v_f = v.to(torch.float32)
@@ -132,7 +185,7 @@ def apply(state, grads, cfg: AdamWConfig):
         new_master = master - cfg.lr * (
             mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * master)
         if cfg.moment_dtype == "int8":
-            m_out, v_out = _quantize(m_f), v_f.to(torch.bfloat16)
+            m_out, v_out = quant[0](m_f), v_f.to(torch.bfloat16)
         else:
             m_out, v_out = m_f, v_f
         return new_master, m_out, v_out

@@ -12,7 +12,8 @@ the reference's: the state lives as DTensors in the step's in-placements
 (``init_state``), a restore puts each leaf straight onto them
 (``restore(shardings=)``), and the step runs through
 ``sharding.sharded`` (the twin of the reference's ``jax.jit`` with
-shardings), which computes on a mesh of one device.  The mesh defaults
+shardings): on a mesh of more than one device each rank computes on its
+shards with the step's collectives (``train/step.py``).  The mesh defaults
 to ``default_mesh(device)``: the CUDA device unless the caller passes
 ``device="cpu"``; it raises without CUDA otherwise.  The default
 manager's store is the reference's, on the engine of ``store_engine``:

@@ -308,12 +308,19 @@ def test_lower_cell_whisper_tiny(meshes, shape):
                             verbose=False, device="cpu", mesh=meshes[True])
     assert (res["arch"], res["shape"], res["mesh"], res["chips"]) == \
         ("whisper_tiny", shape, "2x16x16", 512)
-    for key in ("collectives", "n_collectives", "coll_bytes",
-                "t_collective_s", "memory_analysis", "xla_cost_analysis"):
+    for key in ("memory_analysis", "xla_cost_analysis",
+                "collectives_unknown"):
         assert res[key] is None, key
+    # one rank's sharded step: its collectives, times the chips
+    assert res["n_collectives"] > 0 and res["collectives"]["all-reduce"] > 0
+    assert res["coll_bytes"] == res["coll_bytes_per_chip"] * 512 > 0
+    assert sum(res["collectives"].values()) == res["coll_bytes_per_chip"]
+    assert res["t_collective_s"] == pytest.approx(
+        res["coll_bytes"] / (512 * analysis.ICI_BW))
+    assert res["flops"] == res["flops_per_chip"] * 512
     assert res["unknown_loops"] == 0
     assert res["flops"] > 0 and res["bytes"] > 0 and res["trace_s"] >= 0
-    assert res["bottleneck"] in ("compute", "memory")
+    assert res["bottleneck"] in ("compute", "memory", "collective")
     cfg = get_config("whisper_tiny")
     assert res["model_flops"] == analysis.model_flops(
         cfg, dryrun.SHAPES[shape])
