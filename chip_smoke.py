@@ -153,7 +153,8 @@ through the entry points a user calls, on the card:
    name and power limit.
 16. ``moe_mla_configs``: after ``dense_configs``, on a freed card, the
    same for the MoE, MLA and VLM configs (``MOE_MLA_CONFIGS``):
-   granite-moe-1b (all 24 layers, 32 experts top-8; its weights saved
+   granite-moe-1b (12 of its 24 layers, for the script's time; 32
+   experts top-8; its weights saved
    through the ``fused`` store, K2 and K5 must launch, and restored with
    nodes 0, 2, 4, 6, 8 of every cluster dead, K1 must decode, bit for
    bit), deepseek-v2-236b cut to 4 of its 60 layers (160 routed experts
@@ -211,25 +212,35 @@ through the entry points a user calls, on the card:
 20. ``mesh_ranks``: the models on a mesh of more than one device.
    Here, the mesh of one's serve (4 x 1024-token prompts of seed 0, 32
    greedy tokens, seed-0 weights at full width) of each
-   ``MESH_RANK_CONFIGS`` config -- llama3.2-1b (16 layers, its 8 KV
+   ``MESH_RANK_CONFIGS`` arch -- llama3.2-1b (8 of 16 layers, its 8 KV
    heads over ``model``), gemma3-1b (26 layers; one KV head, so the
    cache shards its slots; a 262,144-row vocabulary), whisper-tiny
-   (heads padded to 16, cross caches) and falcon-mamba-7b at 8 of its
-   64 layers (the ``in_proj`` exchange) -- and 3 train steps of the
-   train phase's config on the mesh of one.  Then two rank
-   subprocesses (``chip_smoke.py --mesh-rank``) share the card, a gloo
-   group over localhost (NCCL refuses two ranks on one device): each
-   config served through the step builders on a (1, 2) mesh, decode fed
-   the mesh of one's tokens, its last logits and every cache leaf whole
-   (``whole``: an all-reduce of each shard placed into zeros) held by
-   the serve gates, each decided argmax equal; and the train steps
-   through ``Trainer(mesh=)`` on (2, 1) (ZeRO-1, int8 moments) and (1,
-   2), loss and grad norm a step within ``MESH_TRAIN_LOSS_TOL`` /
-   ``MESH_TRAIN_GNORM_TOL``.  One line: each config's readings, times
-   and the collectives of a prefill and a decode step (and of a train
-   step), labelled ``MESH_RANKS_LABEL``: two ranks on one card over
-   gloo through the host are not a tensor-parallel speed.  A failing
-   rank fails the phase.
+   (heads padded to 16, cross caches), falcon-mamba-7b at 8 of its 64
+   layers (the ``in_proj`` exchange), granite-moe-1b at 8 of 24 (its
+   experts over ``model``), deepseek-v2-236b at 2 of 60 (MLA; 160
+   experts) and jamba-1.5-large at 8 of 72 (one period, its routed
+   experts drawn once a group), the MoE configs at their published
+   capacity 1.25, their routing logged -- and 3 train steps of
+   llama3.2-1b (the train phase's config) and of granite-moe-1b at 4
+   layers on the mesh of one.  Then two rank subprocesses
+   (``chip_smoke.py --mesh-rank``) share the card, a gloo group over
+   localhost (NCCL refuses two ranks on one device): each config served
+   through the step builders on its mesh, (1, 2) (and deepseek-v2 also
+   (2, 1): its experts over the data plane, by all-to-all, and a decode
+   step's 4 tokens one group across both ranks), weights drawn leaf by
+   leaf, each rank keeping its shards, the ranks in turn; decode fed the
+   mesh of one's tokens, the MoE layers routed as the mesh of one routed
+   them (each rank's count of the pairs its own routing would have
+   changed printed, ``routing_flips_by_rank``), its last logits and
+   every cache leaf whole (``whole``: an all-reduce of each shard placed
+   into zeros) held by the serve gates, each decided argmax equal; and
+   the train steps through ``Trainer(mesh=)`` on (2, 1) (ZeRO-1, int8
+   moments) and (1, 2), loss and grad norm a step within
+   ``MESH_TRAIN_LOSS_TOL`` / ``MESH_TRAIN_GNORM_TOL``.  One line: each
+   config's readings, times and the collectives of a prefill and a
+   decode step (and of a train step), labelled ``MESH_RANKS_LABEL``:
+   two ranks on one card over gloo through the host are not a
+   tensor-parallel speed.  A failing rank fails the phase.
 21. ``dryrun``: ``python -m repro_torch.launch.dryrun`` in subprocesses
    (``DRYRUN_RUNS``: llama3.2-1b at ``train_4k`` and every config at
    ``decode_32k``, each on the 16x16 and 2x16x16 meshes, fake ``cuda``
@@ -237,9 +248,8 @@ through the entry points a user calls, on the card:
    while phases 18-20 run: their fake 512-rank process group cannot
    share this process with the mesh phases' one-rank group.  One line
    with each cell's resident GB per chip, roofline terms and trace
-   seconds; every cell must trace, the seven configs whose steps shard
-   with their collective term (one rank's sharded step), the MoE, MLA
-   and hybrid cells with theirs ``null`` and the reason (Queue 1 F6).
+   seconds; every cell must trace one rank's sharded step, with its
+   collective term.
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
@@ -387,9 +397,11 @@ DENSE_CONFIGS = (("gemma3_1b", None), ("internlm2_20b", None),
 # leaf in fp32 beside its bf16 result (5.03e9 elements, 20.1 GB at 4
 # layers), so at 6 layers the init peak would near 80 GB; it keeps 4
 # (33.9 GB with embed and unembed).  granite-moe-1b's weights go through
-# a SEARS checkpoint before it serves; phi-3-vision prefills 576 patch
-# embeddings before each prompt.
-MOE_MLA_CONFIGS = (("granite_moe_1b", None), ("deepseek_v2_236b", 4),
+# a SEARS checkpoint before it serves: at all 24 layers its save and
+# degraded restore took 97 s of a 962 s call on an H100 (PERF.md), so it
+# keeps 12; phi-3-vision prefills 576 patch embeddings before each
+# prompt.
+MOE_MLA_CONFIGS = (("granite_moe_1b", 12), ("deepseek_v2_236b", 4),
                    ("phi3_vision_4b", None))
 # The SSM, hybrid and encoder-decoder configs served after them, at full
 # width: (arch, layers kept, None for all of them).  whisper-tiny (4
@@ -417,15 +429,35 @@ DRYRUN_RUNS = (("train", "llama32_1b", "train_4k"),
 DRYRUN_TIMEOUT_S = 600
 # The mesh_ranks phase: two rank subprocesses on the one card, a gloo
 # group over localhost (NCCL refuses two ranks on one device), serve these
-# configs at full width on a (1, 2) mesh -- (arch, layers kept, None for
-# all of them): llama3.2-1b's 8 KV heads shard, gemma3-1b's one does not
-# (its cache shards its slots), whisper-tiny's 16 stored heads and cross
+# configs at full width -- (arch, layers kept, None for all of them, the
+# mesh): llama3.2-1b's 8 KV heads shard (at ``SERVE_LAYERS``, as the
+# serve phase, for the script's time), gemma3-1b's one does not (its
+# cache shards its slots), whisper-tiny's 16 stored heads and cross
 # caches, falcon-mamba-7b's in_proj exchange at 8 of its 64 layers (for
-# time) -- and train llama3.2-1b (the train phase's config) on these
-# meshes.  A rank that fails fails the phase.
-MESH_RANK_CONFIGS = (("llama32_1b", None), ("gemma3_1b", None),
-                     ("whisper_tiny", None), ("falcon_mamba_7b", 8))
-MESH_RANK_TRAIN = ((2, 1), (1, 2))
+# time); granite-moe-1b's 32 experts over ``model`` at 8 of 24 layers;
+# deepseek-v2-236b at 2 of 60 layers (the init draws each stacked expert
+# leaf in fp32 beside its bf16 result, 15 GB a rank at 2 layers) on (1,
+# 2), its experts' F and MLA's heads and latent slots over ``model``, and
+# on (2, 1), its experts over the data plane (the all-to-all) and a
+# decode step's 4 tokens one group across both ranks; jamba-1.5-large at
+# one period, 8 of 72 layers, its routed experts drawn once a group
+# (``SHARED_EXPERT_DRAW``), F over ``model`` -- and train llama3.2-1b
+# (the train phase's config) and granite-moe-1b at
+# ``MESH_RANK_TRAIN_MOE_LAYERS`` layers on these meshes.  A rank draws
+# each leaf whole and keeps its shard, the two ranks in turn, so one
+# draw's fp32 transient is on the card at a time.  A rank that fails
+# fails the phase.
+MESH_RANK_CONFIGS = (("llama32_1b", SERVE_LAYERS, (1, 2)),
+                     ("gemma3_1b", None, (1, 2)),
+                     ("whisper_tiny", None, (1, 2)),
+                     ("falcon_mamba_7b", 8, (1, 2)),
+                     ("granite_moe_1b", 8, (1, 2)),
+                     ("deepseek_v2_236b", 2, (1, 2)),
+                     ("deepseek_v2_236b", 2, (2, 1)),
+                     ("jamba_15_large", 8, (1, 2)))
+MESH_RANK_TRAIN = (("llama32_1b", (2, 1)), ("llama32_1b", (1, 2)),
+                   ("granite_moe_1b", (2, 1)), ("granite_moe_1b", (1, 2)))
+MESH_RANK_TRAIN_MOE_LAYERS = 4
 MESH_RANK_TRAIN_STEPS = 3
 # The mesh train against the mesh of one, per step (PERF.md, written
 # before the first reading): the loss within 2e-3 and the grad norm
@@ -437,7 +469,10 @@ MESH_RANK_TRAIN_STEPS = 3
 MESH_TRAIN_LOSS_TOL = 2e-3
 MESH_TRAIN_GNORM_TOL = 2e-2
 MESH_RANKS_TIMEOUT_S = 400
-MESH_RANKS_BUDGET_S = 150  # the phase's time, its subprocesses' included
+# the phase's time, its subprocesses' included: 124.6 s with the MoE,
+# MLA and hybrid configs on a 700 W H100 (PERF.md), room for a
+# host 45% slower
+MESH_RANKS_BUDGET_S = 200
 MESH_RANKS_LABEL = ("two ranks on one card over gloo through the host: "
                     "not a tensor-parallel speed")
 # The examples phase: (example, arguments), run on the card together.
@@ -1525,15 +1560,18 @@ class HostLeaves:
         self.now -= n
 
 
-def train_config(sizes: Sizes):
-    """The train phase's model config (llama3.2-1b at ``TRAIN_LAYERS``, or
-    reduced) and step config (int8 moments)."""
+def train_config(sizes: Sizes, arch: str = "llama32_1b"):
+    """The train phase's model config (llama3.2-1b at ``TRAIN_LAYERS``;
+    the mesh_ranks phase's other arch at ``MESH_RANK_TRAIN_MOE_LAYERS``;
+    or reduced) and step config (int8 moments)."""
     from repro_torch.configs.base import get_config
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import TrainStepConfig
-    cfg = get_config("llama32_1b")
+    cfg = get_config(arch)
+    layers = TRAIN_LAYERS if arch == "llama32_1b" \
+        else MESH_RANK_TRAIN_MOE_LAYERS
     cfg = cfg.reduced() if sizes.reduced else dataclasses.replace(
-        cfg, n_layers=TRAIN_LAYERS)
+        cfg, n_layers=layers)
     return cfg, TrainStepConfig(adamw=AdamWConfig(moment_dtype="int8"))
 
 
@@ -2563,28 +2601,21 @@ def dryrun_phase(procs: list, out_dir: str, card: str = "") -> dict:
         path = pathlib.Path(out_dir) / f"{name}.json"
         if path.exists():
             cells += json.loads(path.read_text())["results"]
-    from repro_torch.configs.base import get_config
-    from repro_torch.distributed.sharding import multi_device_gap
     keys = ("arch", "shape", "mesh", "chips", "resident_gb_per_chip",
             "flops", "bytes", "model_flops", "flops_per_chip",
             "bytes_per_chip", "coll_bytes", "coll_bytes_per_chip",
-            "collectives", "n_collectives", "collectives_unknown",
-            "t_compute_s", "t_memory_s", "t_collective_s", "bottleneck",
-            "useful_flops_ratio", "roofline_fraction", "trace_s", "lower_s")
+            "collectives", "n_collectives", "t_compute_s", "t_memory_s",
+            "t_collective_s", "bottleneck", "useful_flops_ratio",
+            "roofline_fraction", "trace_s", "lower_s")
     want = 2 * sum(len(ARCH_IDS) if arch == "*" else 1
                    for _, arch, _ in DRYRUN_RUNS)
-    gap = {c["arch"]: multi_device_gap(get_config(c["arch"])) for c in cells}
     checks = {"exit_codes_0": all(r["returncode"] == 0
                                   for r in runs.values()),
               "cells": len(cells) == want,
-              # the sharded steps' collectives, where they compute on a
-              # mesh; unknown, with the reason, where they wait for F6
+              # one rank's sharded step: its collectives, in every cell
               "collective_term_known": all(
                   c["t_collective_s"] is not None and c["n_collectives"] > 0
-                  for c in cells if gap[c["arch"]] is None),
-              "collective_term_unknown_for_f6": all(
-                  c["t_collective_s"] is None and c["collectives_unknown"]
-                  for c in cells if gap[c["arch"]] is not None)}
+                  for c in cells)}
     return {"phase": "dryrun", "card": card, "runs": runs,
             "cells": [{k: c[k] for k in keys} for c in cells],
             "wait_seconds": time.perf_counter() - t0, "checks": checks,
@@ -2638,78 +2669,185 @@ def counted(fn, *args):
                     "n": st.n_collectives, "bytes": st.coll_bytes}
 
 
-def mesh_rank_serve(arch: str, depth, sizes: Sizes, mesh, device,
-                    workdir: pathlib.Path, sync) -> dict:
-    """One rank's serve of a ``MESH_RANK_CONFIGS`` config on ``mesh``
-    through the step builders: seed-0 weights laid out on their shards,
-    the prompts of seed 0, prefill, then decode fed the mesh of one's
-    greedy tokens (each step's own argmax kept); the whole last logits
-    and cache, the times (the first decode step, counted, untimed) and
-    the collectives of a prefill and a decode step."""
+def rank_params(model, psh, device, shared: bool = False):
+    """This rank's seed-0 weights of ``model``, leaf by leaf: each leaf
+    drawn whole by the reference's rule (with ``shared``, the routed
+    experts once a group, ``shared_expert_leaf``) in the
+    mesh of one's order, so the bits are its; only this rank's shard is
+    kept (a routed-expert leaf drawn once a group stays one draw,
+    expanded), as a DTensor on its placements of ``psh``.  A config with
+    TP head padding (whisper-tiny) is drawn whole and laid out by
+    ``shard_tree`` (its pad slots are zeroed across leaves)."""
     import torch
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.models import layers as L
+    from repro_torch.tree import at, map_with_path
+
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(0)
+    if cfg.n_heads and L.head_mask(cfg) is not None:
+        return shard_tree(model.init(gen), psh)
+    leaf_init = shared_expert_leaf(cfg.n_experts) if shared \
+        else L.init_leaf
+
+    def one(path, spec):
+        sh = at(psh, path)
+        coord = sh.mesh.get_coordinate()
+
+        def cut(t):  # this rank's shard of a whole leaf: a view
+            for i, p in enumerate(sh.placements):
+                if isinstance(p, Shard):
+                    n = t.shape[p.dim]
+                    step = -(-n // sh.mesh.size(i))
+                    start = min(coord[i] * step, n)
+                    t = t.narrow(p.dim, start, min(start + step, n) - start)
+            return t
+        t = leaf_init(gen, path, spec)
+        if t.dim() > 1 and t.stride(1) == 0:  # one draw, expanded
+            local = cut(t[:, :1]).clone().expand(cut(t).shape)
+        else:
+            local = cut(t).clone()
+        del t
+        return DTensor.from_local(local, sh.mesh, sh.placements,
+                                  run_check=False)
+    return map_with_path(one, model.param_shapes())
+
+
+@contextlib.contextmanager
+def rank_replay(served: list | None):
+    """Within the block, route a rank's MoE layers as the mesh of one
+    routed them: the k-th call of ``layers.route_groups`` (a prefill's
+    MoE layers, then each decode step's) takes the top-k sets of
+    ``served[k]`` (the mesh of one's log entry, (B, S, K) in global
+    token order) for the rows of its groups, from their first token's
+    global index (the pad rows of a group keep their own).  Yields a
+    dict: ``flips``, the (token, MoE layer) pairs of the rows this rank
+    routed whose own top-k set was another, with the router margins
+    there (``margins``); ``calls``, set to 0 to replay from the first
+    entry again.  Without a log (no MoE) it does nothing."""
+    from repro_torch.models import layers as L
+
+    state = {"calls": 0, "flips": 0, "margins": []}
+    if served is None:
+        yield state
+        return
+    route = L.route_groups
+
+    def replay(logits, cfg, idx=None, first=0):
+        r = route(logits, cfg)
+        want = served[state["calls"]].to(logits.device)
+        state["calls"] += 1
+        K = want.shape[-1]
+        want = want.reshape(-1, K)
+        rows = min(r.idx.shape[0] * r.idx.shape[1], want.shape[0] - first)
+        own = r.idx.reshape(-1, K)
+        full = own.clone()
+        full[:rows] = want[first:first + rows]
+        differ = (own[:rows].sort(-1).values
+                  != full[:rows].sort(-1).values).any(-1)
+        state["flips"] += int(differ.sum())
+        state["margins"] += r.margin.reshape(-1)[:rows][differ].tolist()
+        return route(logits, cfg, idx=full.reshape(r.idx.shape))
+
+    L.route_groups = replay
+    try:
+        yield state
+    finally:
+        L.route_groups = route
+
+
+def mesh_rank_serve(arch: str, depth, shape, sizes: Sizes, mesh, device,
+                    workdir: pathlib.Path, sync) -> dict:
+    """One rank's serve of a ``MESH_RANK_CONFIGS`` config on ``mesh`` (of
+    ``shape``) through the step builders: seed-0 weights drawn leaf by
+    leaf, the two ranks in turn, each keeping its shards
+    (``rank_params``), the prompts of seed 0, prefill, then decode fed
+    the mesh of one's greedy tokens (each step's own argmax kept), the
+    MoE layers routed as the mesh of one routed them (``rank_replay``);
+    the whole last logits and cache, the times (the first decode step,
+    counted, untimed), the collectives of a prefill and a decode step,
+    and the routing flips each rank counted."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import MeshRules, shard_tree
     from repro_torch.launch.serve import prefix_len, prompts
-    from repro_torch.models import api
     from repro_torch.serve.step import build_decode_step, build_prefill_step
     from repro_torch.tree import tree_map
 
     cfg = mesh_config(arch, depth, sizes)
     B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
     rules = MeshRules(mesh)
-    shape = ShapeConfig("mesh_ranks", P + n, B, "decode")
-    prefill, (psh, bsh), _, _ = build_prefill_step(cfg, rules, shape)
-    decode, in_sh, _, _ = build_decode_step(cfg, rules, shape)
-    params = api.get_model(cfg).init(
-        torch.Generator(device=device).manual_seed(0))
-    dparams = shard_tree(params, psh)
-    del params
+    sc = ShapeConfig("mesh_ranks", P + n, B, "decode")
+    prefill, (psh, bsh), _, _ = build_prefill_step(cfg, rules, sc)
+    decode, in_sh, _, _ = build_decode_step(cfg, rules, sc)
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            dparams = rank_params(prefill.model, psh, device,
+                                  arch in SHARED_EXPERT_DRAW)
+            sync()
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
     batch = prompts(cfg, B, P, 0, device)
     Pt = prefix_len(batch)
     fed = torch.load(workdir / f"{arch}.tokens.pt").to(device)
+    routing = workdir / f"{arch}.routing.pt"
+    served = torch.load(routing) if routing.exists() else None
     dbatch = shard_tree(batch, bsh)
-    sync()
-    t0 = time.perf_counter()
-    logits, cache = prefill(dparams, dbatch)
-    own = [whole(logits).argmax(-1)]
-    sync()
-    prefill_s = time.perf_counter() - t0
-    decode_s = 0.0
-    for i in range(n - 1):
-        tok = shard_tree(fed[:, i:i + 1], in_sh[2])
-        if i == 0:
-            (logits, cache), decode_coll = counted(decode, dparams, cache,
-                                                   tok, Pt)
-            own.append(whole(logits).argmax(-1))
-            continue
-        t0 = time.perf_counter()
-        logits, cache = decode(dparams, cache, tok, Pt + i)
-        own.append(whole(logits).argmax(-1))
+    with rank_replay(served) as replay:
         sync()
-        decode_s += time.perf_counter() - t0
-    out = {"tokens": torch.stack(own, dim=1).cpu(),
-           "logits": whole(logits).cpu(),
-           "cache": tree_map(lambda t: whole(t).cpu(), cache),
-           "cache_placements": {k: [str(p) for p in t.placements]
-                                for k, t in cache.items()},
-           "prefill_seconds": prefill_s, "decode_seconds": decode_s,
-           "decode_steps_timed": n - 2, "decode_collectives": decode_coll}
-    del cache
-    _, out["prefill_collectives"] = counted(prefill, dparams, dbatch)
+        t0 = time.perf_counter()
+        logits, cache = prefill(dparams, dbatch)
+        own = [whole(logits).argmax(-1)]
+        sync()
+        prefill_s = time.perf_counter() - t0
+        decode_s = 0.0
+        for i in range(n - 1):
+            tok = shard_tree(fed[:, i:i + 1], in_sh[2])
+            if i == 0:
+                (logits, cache), decode_coll = counted(
+                    decode, dparams, cache, tok, Pt)
+                own.append(whole(logits).argmax(-1))
+                continue
+            t0 = time.perf_counter()
+            logits, cache = decode(dparams, cache, tok, Pt + i)
+            own.append(whole(logits).argmax(-1))
+            sync()
+            decode_s += time.perf_counter() - t0
+        flips = {"flips": replay["flips"],
+                 "smallest_margin": min(replay["margins"], default=None)}
+        out = {"tokens": torch.stack(own, dim=1).cpu(),
+               "logits": whole(logits).cpu(),
+               "cache": tree_map(lambda t: whole(t).cpu(), cache),
+               "cache_placements": {k: [str(p) for p in t.placements]
+                                    for k, t in cache.items()},
+               "prefill_seconds": prefill_s, "decode_seconds": decode_s,
+               "decode_steps_timed": n - 2,
+               "decode_collectives": decode_coll}
+        del cache
+        replay["calls"] = 0
+        _, out["prefill_collectives"] = counted(prefill, dparams, dbatch)
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, flips)
+    out["routing_flips_by_rank"] = by_rank if served is not None else None
+    del dparams
     return out
 
 
-def mesh_rank_train(shape, sizes: Sizes, device) -> dict:
-    """One rank of ``MESH_RANK_TRAIN_STEPS`` train steps of the train
-    phase's config through ``Trainer(mesh=)`` on a mesh of ``shape``:
-    (loss, grad norm) a step, the steps' seconds (the first, counted,
-    apart) and the first step's collectives."""
+def mesh_rank_train(arch: str, shape, sizes: Sizes, device) -> dict:
+    """One rank of ``MESH_RANK_TRAIN_STEPS`` train steps of ``arch``
+    (``train_config``) through ``Trainer(mesh=)`` on a mesh of
+    ``shape``: (loss, grad norm) a step, the steps' seconds (the first,
+    counted, apart) and the first step's collectives."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.checkpoint.manager import SEARSCheckpointManager
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg, tcfg = train_config(sizes)
+    cfg, tcfg = train_config(sizes, arch)
     mesh = init_device_mesh(device.type, tuple(shape),
                             mesh_dim_names=("data", "model"))
     tr = Trainer(cfg, DataConfig(seq_len=sizes.train_seq,
@@ -2730,7 +2868,7 @@ def mesh_rank_train(shape, sizes: Sizes, device) -> dict:
     tr.sharded_step = run
     recs = [m for m in tr.run() if "loss" in m]
     walls = [m["wall_s"] for m in recs]
-    return {"mesh": list(shape),
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mesh": list(shape),
             "metrics": [(m["loss"], m["grad_norm"]) for m in recs],
             "step_seconds": [b - a for a, b in zip(walls, walls[1:])],
             "collectives": first[0]}
@@ -2739,8 +2877,8 @@ def mesh_rank_train(shape, sizes: Sizes, device) -> dict:
 def mesh_rank(rank: int, port: int, workdir: str) -> None:
     """A rank of the ``mesh_ranks`` phase (``chip_smoke.py --mesh-rank
     RANK PORT DIR``): joins the two ranks' gloo group on localhost, serves
-    every ``MESH_RANK_CONFIGS`` config on a (1, 2) mesh, trains on each
-    ``MESH_RANK_TRAIN`` mesh; rank 0 writes the results."""
+    every ``MESH_RANK_CONFIGS`` config on its mesh, trains each
+    ``MESH_RANK_TRAIN`` arch on its mesh; rank 0 writes the results."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2757,17 +2895,22 @@ def mesh_rank(rank: int, port: int, workdir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=2)
     try:
-        mesh = init_device_mesh(device.type, (1, 2),
-                                mesh_dim_names=("data", "model"))
+        meshes = {}
         out = {"configs": {}, "train": {}}
         with torch.no_grad():
-            for arch, depth in MESH_RANK_CONFIGS:
-                out["configs"][arch] = mesh_rank_serve(
-                    arch, depth, sizes, mesh, device, workdir, sync)
+            for arch, depth, shape in MESH_RANK_CONFIGS:
+                if shape not in meshes:
+                    meshes[shape] = init_device_mesh(
+                        device.type, shape, mesh_dim_names=("data", "model"))
+                out["configs"][arch, shape] = mesh_rank_serve(
+                    arch, depth, shape, sizes, meshes[shape], device,
+                    workdir, sync)
                 gc.collect()
-        for shape in MESH_RANK_TRAIN:
-            out["train"]["x".join(map(str, shape))] = mesh_rank_train(
-                shape, sizes, device)
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+        for arch, shape in MESH_RANK_TRAIN:
+            out["train"][arch, shape] = mesh_rank_train(arch, shape, sizes,
+                                                        device)
             gc.collect()
         if rank == 0:
             torch.save(out, workdir / "rank0.pt")
@@ -2779,21 +2922,28 @@ def mesh_one(arch: str, depth, sizes: Sizes, device, workdir, sync
              ) -> dict:
     """The mesh of one's serve of a ``MESH_RANK_CONFIGS`` config (the
     plain model, which the mesh-of-one builders equal bit for bit:
-    ``mesh_serve``): greedy tokens (written for the ranks to feed), the
-    top two logits and the largest |logit| of every step, the last
-    logits and the cache, on the host."""
+    ``mesh_serve``; a ``SHARED_EXPERT_DRAW`` config's routed experts
+    drawn once a group): greedy tokens and, for an MoE config, every MoE
+    layer's routing (written for the ranks to feed and replay), the top
+    two logits and the largest |logit| of every step, the last logits
+    and the cache, on the host."""
     import torch
     from repro_torch.launch.serve import prefix_len, prompts
     from repro_torch.models import api
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import map_with_path, tree_map
 
     cfg = mesh_config(arch, depth, sizes)
     B, P, n = sizes.serve_batch, sizes.prompt_len, sizes.gen_tokens
     model = api.get_model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model._zero_pads(map_with_path(functools.partial(
+        shared_expert_leaf(cfg.n_experts), gen), model.param_shapes())) \
+        if arch in SHARED_EXPERT_DRAW else model.init(gen)
     batch = prompts(cfg, B, P, 0, device)
     Pt = prefix_len(batch)
     toks, tops, scales = [], [], []
+    model.moe_log = [] if cfg.n_experts else None
+    t0 = time.perf_counter()
     with torch.no_grad():
         logits, cache = model.prefill(params, batch, cache_len=P + n)
         for i in range(n):
@@ -2805,24 +2955,29 @@ def mesh_one(arch: str, depth, sizes: Sizes, device, workdir, sync
                 logits, cache = model.decode_step(params, cache,
                                                   toks[-1][:, None], Pt + i)
     sync()
+    serve_s = time.perf_counter() - t0
     tokens = torch.stack(toks, dim=1)
     torch.save(tokens.cpu(), pathlib.Path(workdir) / f"{arch}.tokens.pt")
+    if model.moe_log is not None:
+        torch.save([idx.cpu() for idx, _, _ in model.moe_log],
+                   pathlib.Path(workdir) / f"{arch}.routing.pt")
     out = {"cfg": cfg, "Pt": Pt, "tokens": tokens.cpu(),
            "tops": torch.stack(tops), "scales": scales,
-           "logits": logits.cpu(), "cache": tree_map(lambda t: t.cpu(),
-                                                     cache)}
+           "logits": logits.cpu(), "serve_seconds": serve_s,
+           "cache": tree_map(lambda t: t.cpu(), cache)}
+    model.moe_log = None
     del params, cache, model
     return out
 
 
-def mesh_one_train(sizes: Sizes, device) -> list:
-    """(loss, grad norm) of ``MESH_RANK_TRAIN_STEPS`` steps of the train
-    phase's config on the host mesh of one device."""
+def mesh_one_train(arch: str, sizes: Sizes, device) -> list:
+    """(loss, grad norm) of ``MESH_RANK_TRAIN_STEPS`` steps of ``arch``
+    (``train_config``) on the host mesh of one device."""
     from repro_torch.checkpoint.manager import SEARSCheckpointManager
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg, tcfg = train_config(sizes)
+    cfg, tcfg = train_config(sizes, arch)
     tr = Trainer(cfg, DataConfig(seq_len=sizes.train_seq,
                                  global_batch=sizes.train_batch,
                                  vocab_size=cfg.vocab_size),
@@ -2843,31 +2998,44 @@ def _free_port() -> int:
 
 def mesh_ranks_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     """``mesh_ranks``: the mesh of one's serve of each
-    ``MESH_RANK_CONFIGS`` config and its train steps here, then two rank
-    subprocesses (``mesh_rank``) over gloo on localhost: each config's
-    serve on a (1, 2) mesh, decode fed the mesh of one's greedy tokens,
-    held by the serve gates (``SERVE_GATES``, else the base ones): the
-    last logits and every cache leaf per layer (slot caches over the
-    slots written) within the cache and logit gates of their largest
-    |value|, and each step's argmax equal to the mesh of one's token
-    where its top two logits lie further apart than the logit gate; and
-    the train steps on each ``MESH_RANK_TRAIN`` mesh, loss and grad norm
-    within ``MESH_TRAIN_LOSS_TOL`` / ``MESH_TRAIN_GNORM_TOL`` of the mesh
-    of one's, relative.  A rank that fails fails the phase.  The times
-    and collectives are ``MESH_RANKS_LABEL``."""
+    ``MESH_RANK_CONFIGS`` arch and the train steps of each
+    ``MESH_RANK_TRAIN`` arch here (their weights freed before the ranks
+    start), then two rank subprocesses (``mesh_rank``) over gloo on
+    localhost: each config's serve on its mesh, decode fed the mesh of
+    one's greedy tokens and the MoE layers routed as the mesh of one
+    routed them (each rank's count of the pairs it would have routed
+    otherwise printed), held by the serve gates (``SERVE_GATES``, else
+    the base ones): the last logits and every cache leaf per layer (slot
+    caches over the slots written) within the cache and logit gates of
+    their largest |value|, and each step's argmax equal to the mesh of
+    one's token where its top two logits lie further apart than the
+    logit gate; and the train steps on each ``MESH_RANK_TRAIN`` mesh,
+    loss and grad norm within ``MESH_TRAIN_LOSS_TOL`` /
+    ``MESH_TRAIN_GNORM_TOL`` of the mesh of one's, relative.  A rank
+    that fails fails the phase.  The times and collectives are
+    ``MESH_RANKS_LABEL``."""
     import torch
     t_start = time.perf_counter()
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    one_seconds = {}
     try:
-        one = {arch: mesh_one(arch, depth, sizes, device, workdir, sync)
-               for arch, depth in MESH_RANK_CONFIGS}
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        one_train = mesh_one_train(sizes, device)
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+        one = {}
+        for arch, depth, _ in MESH_RANK_CONFIGS:
+            if arch not in one:
+                t0 = time.perf_counter()
+                one[arch] = mesh_one(arch, depth, sizes, device, workdir,
+                                     sync)
+                gc.collect()
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                one_seconds[arch] = time.perf_counter() - t0
+        one_train = {}
+        for arch, _ in MESH_RANK_TRAIN:
+            if arch not in one_train:
+                one_train[arch] = mesh_one_train(arch, sizes, device)
+                gc.collect()
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
         (workdir / "spec.json").write_text(json.dumps(
             {"sizes": dataclasses.asdict(sizes), "device": device.type}))
         port = _free_port()
@@ -2901,9 +3069,10 @@ def mesh_ranks_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     configs, checks = [], {}
-    for arch, _ in MESH_RANK_CONFIGS:
-        o, r = one[arch], ranks["configs"][arch]
+    for arch, _, shape in MESH_RANK_CONFIGS:
+        o, r = one[arch], ranks["configs"][arch, shape]
         cfg = o["cfg"]
+        name = f"{arch}_{shape[0]}x{shape[1]}"
         cache_tol, logit_tol = (SERVE_CACHE_TOL, SERVE_LOGIT_TOL) \
             if sizes.reduced else SERVE_GATES.get(
                 arch, (SERVE_CACHE_TOL, SERVE_LOGIT_TOL))
@@ -2915,47 +3084,55 @@ def mesh_ranks_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
         agree = r["tokens"].T == o["tokens"].T
         written = o["Pt"] + sizes.gen_tokens - 1
         cache_err = {}
-        for name, w in o["cache"].items():
-            g = r["cache"][name]
-            if name in SLOT_CACHES:
+        for leaf, w in o["cache"].items():
+            g = r["cache"][leaf]
+            if leaf in SLOT_CACHES:
                 g, w = g[:, :, :written], w[:, :, :written]
-            cache_err[name] = max(layer_rel_err(
-                g.float().flatten(0, -4) if name in STATE_CACHES
+            cache_err[leaf] = max(layer_rel_err(
+                g.float().flatten(0, -4) if leaf in STATE_CACHES
                 else g.float(), w.float().flatten(0, -4)
-                if name in STATE_CACHES else w.float()))
+                if leaf in STATE_CACHES else w.float()))
         line = {"arch": cfg.name, "layers": cfg.n_layers,
-                "mesh": [1, 2], "batch": sizes.serve_batch,
+                "mesh": list(shape), "batch": sizes.serve_batch,
                 "prompt_len": sizes.prompt_len, "tokens": sizes.gen_tokens,
                 "kv_heads_stored": cfg.kv_store if cfg.n_heads else None,
                 "cache_placements": r["cache_placements"],
-                "vocab_sharded": cfg.vocab_size % 2 == 0,
+                "vocab_sharded": cfg.vocab_size % shape[1] == 0
+                and shape[1] > 1,
                 "cache_tol": cache_tol, "logit_tol": logit_tol,
                 "logit_rel_err": logit_err, "cache_rel_err": cache_err,
                 "argmax_decided": int(decided.sum()),
                 "argmax_decided_agree": bool(agree[decided].all()),
                 "argmax_agree_all": bool(agree.all()),
+                "mesh_of_one_serve_seconds": one_seconds[arch],
                 "prefill_seconds": r["prefill_seconds"],
                 "decode_seconds": r["decode_seconds"],
                 "decode_tok_per_s": sizes.serve_batch
                 * r["decode_steps_timed"] / max(r["decode_seconds"], 1e-9),
                 "prefill_collectives": r["prefill_collectives"],
                 "decode_step_collectives": r["decode_collectives"]}
+        if cfg.n_experts:
+            line.update(capacity_factor=cfg.capacity_factor,
+                        expert_layout=moe_layout(cfg, shape),
+                        routing_replayed=True,
+                        routing_flips_by_rank=r["routing_flips_by_rank"])
         line["ok"] = (logit_err <= logit_tol
                       and all(e <= cache_tol for e in cache_err.values())
                       and line["argmax_decided_agree"]
                       and bool(torch.isfinite(r["logits"]).all()))
-        checks[f"{arch}_serve"] = line["ok"]
+        checks[f"{name}_serve"] = line["ok"]
         configs.append(line)
     train = []
-    for name, t in ranks["train"].items():
+    for (arch, shape), t in ranks["train"].items():
+        want = one_train[arch]
         loss_err = [abs(g[0] - w[0]) / abs(w[0])
-                    for g, w in zip(t["metrics"], one_train, strict=True)]
+                    for g, w in zip(t["metrics"], want, strict=True)]
         gnorm_err = [abs(g[1] - w[1]) / abs(w[1])
-                     for g, w in zip(t["metrics"], one_train, strict=True)]
+                     for g, w in zip(t["metrics"], want, strict=True)]
         ok = max(loss_err) <= MESH_TRAIN_LOSS_TOL \
             and max(gnorm_err) <= MESH_TRAIN_GNORM_TOL
-        checks[f"train_{name}"] = ok
-        train.append(dict(t, mesh_of_one=one_train, loss_rel_err=loss_err,
+        checks[f"train_{arch}_{shape[0]}x{shape[1]}"] = ok
+        train.append(dict(t, mesh_of_one=want, loss_rel_err=loss_err,
                           grad_norm_rel_err=gnorm_err, ok=ok))
     seconds = time.perf_counter() - t_start
     if not sizes.reduced:
@@ -2967,6 +3144,23 @@ def mesh_ranks_phase(sizes: Sizes, device, sync, card: str = "") -> dict:
             "ranks_seconds": ranks_s, "seconds": seconds,
             "budget_seconds": MESH_RANKS_BUDGET_S, "checks": checks,
             "ok": all(checks.values())}
+
+
+def moe_layout(cfg, shape) -> str:
+    """Where an MoE config's routed experts lie on a mesh of ``shape``
+    (``MeshRules.param_spec``: E over ``model``, or over the data plane
+    with F over ``model``)."""
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.models import api
+    from repro_torch.tree import flatten_with_path
+    mesh = type("Mesh", (), dict(mesh_dim_names=("data", "model"),
+                                 shape=tuple(shape)))()
+    rules = MeshRules(mesh)
+    for path, spec in flatten_with_path(api.get_model(cfg).param_shapes()):
+        if path[-1] == "wg" and rules.moe_leaf(path, spec.shape):
+            e, _, f = tuple(rules.param_spec(path, spec.shape))[-3:]
+            return f"E over {e}" + (f", F over {f}" if f else "")
+    return ""
 
 
 def examples_phase(device, card: str = "") -> dict:

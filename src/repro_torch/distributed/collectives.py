@@ -23,8 +23,15 @@ inside a ``torch.autograd.Function`` with its backward:
   (the output of a row-parallel matmul);
 * ``gather``: all-gather over an axis (an FSDP leaf over the data
   plane); its backward reduce-scatters the gradient onto the shard;
+* ``gather_whole``: all-gather over an axis for a computation that
+  every rank of the plane repeats whole (an MoE layer's router logits,
+  which every rank routes whole); its backward keeps this rank's slice
+  of the gradient, which is already the whole one;
 * ``exchange_halves``: the all-to-all of a Mamba block's ``in_proj``
-  output; its backward is the reverse exchange.
+  output; its backward is the reverse exchange;
+* ``exchange_chunks``: the all-to-all of an MoE layer's expert queues
+  over the data plane (chunk j to rank j, in equal parts); its backward
+  is the same exchange of the gradient.
 
 One collective is built from another, the same way on every backend:
 the gloo process group that two ranks on one card share crashes on the
@@ -127,6 +134,35 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         p = ctx.plane
         return _reduce_scatter(g, ctx.dim, p.group, p.size), None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, plane):
+        ctx.dim, ctx.plane, ctx.n = dim, plane, x.shape[dim]
+        return _all_gather(x, dim, plane.group, plane.size, plane.rank)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.plane.rank * ctx.n, ctx.n), None, None
+
+
+class _ExchangeChunks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plane):
+        ctx.plane = plane
+        return _exchange_chunks(x, plane)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange_chunks(g, ctx.plane), None
+
+
+def _exchange_chunks(x: torch.Tensor, plane: Plane) -> torch.Tensor:
+    """``x`` (size, ...): chunk j sent to rank j; chunk i of the result
+    came from rank i."""
+    split = [1] * plane.size
+    return _all_to_all(x, split, split, plane.group)
 
 
 def _exchange(y: torch.Tensor, plane: Plane, forward: bool
@@ -244,7 +280,27 @@ class Par:
         or z's chunk k - m, and belongs to rank k mod m."""
         return _ExchangeHalves.apply(y, self.model)
 
+    def exchange_chunks(self, x: torch.Tensor, entry) -> torch.Tensor:
+        """``x`` (n, ...), n the size of the plane of ``entry``: chunk j
+        sent to its rank j, chunk i of the result received from rank i
+        (one all-to-all in equal parts; the same exchange of the
+        gradient back)."""
+        plane = self.plane(entry)
+        if plane is None or plane.size == 1:
+            return x
+        return _ExchangeChunks.apply(x, plane)
+
     # ----------------------------------------------- sharded dims -------
+    def gather_whole(self, x: torch.Tensor, dim: int, entry
+                     ) -> torch.Tensor:
+        """``gather``, for a computation that every rank of the plane
+        repeats whole: the backward keeps this rank's slice of the
+        gradient (each rank's is the whole gradient already)."""
+        plane = self.plane(entry)
+        if plane is None or plane.size == 1:
+            return x
+        return _GatherWhole.apply(x, dim % x.ndim, plane)
+
     def gather(self, x: torch.Tensor, dim: int, entry) -> torch.Tensor:
         """``x`` all-gathered along ``dim`` over the plane of ``entry``
         (the reduce-scatter of the gradient back); ``x`` itself where
@@ -285,7 +341,9 @@ class Par:
         model-parallel shards the model computes on.  Per step: every
         such leaf is gathered before the step's first layer.  Under
         autograd each gradient is reduce-scattered back onto the shard
-        (summed over the data plane)."""
+        (summed over the data plane).  ``specs``: the FSDP entries alone
+        (``MeshRules.fsdp_pspecs``: a routed-expert leaf over the data
+        plane stays sharded, the MoE layer's all-to-all computes on it)."""
         def gather(path, t):
             for d, entry in enumerate(at(specs, path)):
                 if self.is_data(entry):

@@ -15,7 +15,10 @@ Parameter policy (megatron-style TP + optional FSDP), as the reference's:
   * MLP wg/wu (D,F) / wd (F,D)       -> F over model
   * MoE router (D,E)                 -> E over model;
     experts (E,D,F)/(E,F,D)          -> E over model, or over the data
-                                        plane above 256 MiB a layer
+                                        plane above 256 MiB a layer (F
+                                        then over model; expert
+                                        parallel, never FSDP-gathered:
+                                        ``expert_parallel``)
   * Mamba in/out/conv/x_proj/dt/A    -> d_inner over model
   * norms / biases                   -> replicated
   * with ``fsdp=True``: the largest remaining dim of every >=2D param is
@@ -183,7 +186,7 @@ class MeshRules:
                 spec[h_axis] = m
         elif name in ("wg", "wu", "wd"):
             f_axis = nd - 1 if name in ("wg", "wu") else nd - 2
-            if self._moe_leaf(path, shape):
+            if self.moe_leaf(path, shape):
                 # EP over the data plane + TP(F) over model for big
                 # experts (no per-use gathers); small experts (granite:
                 # 33 MB a layer) keep EP over model
@@ -222,7 +225,29 @@ class MeshRules:
                 spec[max(cands, key=lambda j: shape[j])] = self.data_axis()
         return P(*spec)
 
-    def _moe_leaf(self, path, shape) -> bool:
+    def expert_parallel(self, path, shape) -> bool:
+        """Does a routed-expert leaf shard its E over the data plane
+        (expert parallelism, not FSDP: the MoE layer's all-to-all
+        computes on the shard, which is never gathered)?"""
+        if not self.moe_leaf(path, shape):
+            return False
+        rules = dataclasses.replace(self, fsdp=False)
+        return rules.param_spec(path, shape)[len(shape) - 3] \
+            == self.data_axis()
+
+    def fsdp_pspecs(self, param_shapes):
+        """``params_pspecs`` with the FSDP entries over the data plane
+        alone: an expert-parallel leaf's E entry (``expert_parallel``)
+        dropped.  What ``Par.gather_fsdp`` gathers."""
+        def spec(path, leaf):
+            shape = tuple(leaf.shape)
+            s = list(self.param_spec(path, shape))
+            if self.expert_parallel(path, shape):
+                s[len(shape) - 3] = None
+            return P(*s)
+        return map_with_path(spec, param_shapes)
+
+    def moe_leaf(self, path, shape) -> bool:
         """Routed-expert tensor?  Transformer MoE experts live under
         'ffn' and are 4D when layer-stacked (L, E, D, F) -- dense stacked
         MLPs are 3D (L, D, F) and shared experts sit under 'shared'.
@@ -302,19 +327,7 @@ class MeshRules:
                  self.model_axis)
 
 
-def multi_device_gap(cfg) -> str | None:
-    """Why ``cfg``'s steps cannot run on a mesh of more than one device,
-    or None where they can: the routed experts (MoE), MLA and the hybrid
-    stack hold no collectives yet (ROADMAP.md, Queue 1 F6)."""
-    if cfg.n_experts or cfg.use_mla or cfg.family == "hybrid":
-        return (f"{cfg.name}: the port's MoE, MLA and hybrid models run on "
-                "a mesh of one device; the routed experts' all-to-all, "
-                "MLA's latent cache over T and the hybrid stack wait for "
-                "ROADMAP.md, Queue 1 F6")
-    return None
-
-
-def sharded(fn, out_shardings, mesh, refuse: str | None = None):
+def sharded(fn, out_shardings, mesh):
     """``fn`` as a step over DTensors: the twin of the reference's
     ``jax.jit(fn, in_shardings, out_shardings)``.
 
@@ -324,14 +337,10 @@ def sharded(fn, out_shardings, mesh, refuse: str | None = None):
     on this rank's shards and holds the collectives itself
     (``distributed.collectives``) -- and wraps every output tensor as a
     DTensor in its placements of ``out_shardings`` (a tree of
-    ``Sharding`` with the outputs' paths), without a copy.  ``refuse``:
-    a reason, where ``fn`` cannot compute on ``mesh``
-    (``multi_device_gap``): the step then raises ``NotImplementedError``
-    with it.  ``step.local`` is ``fn``.
+    ``Sharding`` with the outputs' paths), without a copy.  ``step.local``
+    is ``fn``.
     """
     def step(*args):
-        if refuse is not None:
-            raise NotImplementedError(refuse)
         out = fn(*map_with_path(lambda _path, x: local(x), args))
 
         def wrap(path, t):

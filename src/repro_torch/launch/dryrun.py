@@ -19,21 +19,17 @@ Per cell:
   reference's arithmetic);
 * the roofline terms (``analysis.Roofline``) from one rank's counts
   (``analysis.analyze_step`` on fake tensors) times the chips, as the
-  reference scales its per-device post-SPMD HLO counts: for the seven
-  configs whose steps compute on a mesh (dense, VLM, SSM,
-  encoder-decoder), one rank's *sharded* step at its local shapes, its
-  collectives included (``collectives``: operand bytes by kind,
-  ``n_collectives``, ``coll_bytes``, the collective term at 450 GB/s),
-  with the redundant work of replicated ops counted on every chip; a
-  train cell's microbatch body traced once and weighted by the
-  microbatch count, as ``analyze_hlo`` weights a while body by its trip
-  count, and the update once.  ``flops_per_chip``,
-  ``bytes_per_chip`` and ``coll_bytes_per_chip`` are that rank's;
-* for the MoE, MLA and hybrid configs, whose steps raise on a mesh of
-  more than one device (ROADMAP.md, Queue 1 F6), the *plain* step at
-  the cell's global shapes (whole-mesh FLOPs and bytes, no redundancy),
-  and ``collectives``, ``n_collectives`` and the collective term
-  ``null``, with the reason in ``collectives_unknown``;
+  reference scales its per-device post-SPMD HLO counts: one rank's
+  *sharded* step at its local shapes, its collectives included
+  (``collectives``: operand bytes by kind, the MoE layers'
+  all-to-alls among them, ``n_collectives``, ``coll_bytes``, the
+  collective term at 450 GB/s), with the redundant work of replicated
+  ops counted on every chip; a train cell's microbatch body traced once
+  and weighted by the microbatch count, as ``analyze_hlo`` weights a
+  while body by its trip count, and the update once.
+  ``flops_per_chip``, ``bytes_per_chip`` and ``coll_bytes_per_chip``
+  are that rank's (on a mesh of one device, the plain step at the
+  cell's global shapes, and these ``null``);
 * ``trace_s``: the trace's host seconds;
 * ``memory_analysis`` and ``xla_cost_analysis``: ``null``; XLA's
   compiled-artifact analyses have no torch twin.
@@ -64,7 +60,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES, get_config, runnable_cells
-from repro_torch.distributed.sharding import MeshRules, multi_device_gap
+from repro_torch.distributed.sharding import MeshRules
 from repro_torch.launch import analysis
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import api
@@ -173,11 +169,10 @@ def local_specs(specs, shardings):
     return map_with_path(local, specs)
 
 
-def shards_on(cfg, mesh) -> bool:
-    """Does ``cfg``'s step compute on ``mesh``'s shards (a mesh of more
-    than one device, and no ``multi_device_gap``)?"""
-    return mesh is not None and mesh.size() > 1 \
-        and multi_device_gap(cfg) is None
+def shards_on(mesh) -> bool:
+    """Does a step compute on ``mesh``'s shards (a mesh of more than one
+    device)?"""
+    return mesh is not None and mesh.size() > 1
 
 
 def trace_cell(arch: str, shape_name: str, step, device: str = "cuda",
@@ -198,7 +193,7 @@ def trace_step(cfg, shape, step, device: str = "cuda", mesh=None
     train cell traces the plain step (its microbatch body once), a serve
     cell the plain model's ``prefill`` or ``decode_step``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    sharded = shards_on(cfg, mesh)
+    sharded = shards_on(mesh)
     model = api.get_model(cfg)
     param_shapes = model.param_shapes()
 
@@ -263,7 +258,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
     resident_gb, step = build_cell(arch, shape_name, mesh, overrides)
     t_build = time.perf_counter() - t0
     traces = {} if traces is None else traces
-    sharded = shards_on(cfg, mesh)
+    sharded = shards_on(mesh)
     key = (arch, shape_name) + ((tuple(mesh.shape),) if sharded else ())
     if key not in traces:
         traces[key] = trace_cell(arch, shape_name, step, device, mesh)
@@ -284,7 +279,6 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "lower_s": round(t_build, 1), "trace_s": round(trace_s, 1),
         "collectives": stats.coll_by_kind if sharded else None,
         "n_collectives": stats.n_collectives if sharded else None,
-        "collectives_unknown": None if sharded else multi_device_gap(cfg),
         "flops_per_chip": stats.flops if sharded else None,
         "bytes_per_chip": stats.bytes_traffic if sharded else None,
         "coll_bytes_per_chip": stats.coll_bytes if sharded else None,
@@ -310,9 +304,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
                    roof.bottleneck, roof.useful_flops_ratio,
                    roof.roofline_fraction))
         else:
-            print("plain step: flops=%.3e bytes=%.3e (whole mesh; traced in "
-                  "%.1fs; collectives unknown: Queue 1 F6)"
-                  % (stats.flops, stats.bytes_traffic, trace_s))
+            print("plain step: flops=%.3e bytes=%.3e (a mesh of one; traced "
+                  "in %.1fs)" % (stats.flops, stats.bytes_traffic, trace_s))
             print("roofline: compute=%.4fs memory=%.4fs collective=unknown "
                   "bottleneck=%s useful=%.2f roofline_frac=%.3f" %
                   (roof.t_compute, roof.t_memory, roof.bottleneck,

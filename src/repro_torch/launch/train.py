@@ -26,8 +26,8 @@ the trainer runs: the CUDA kernels on the card, the ``"numpy"`` engine
 with ``--device cpu``.  It runs on CUDA unless ``--device cpu`` is
 given, and fails without a card.  On a group of n ranks the host mesh
 is (n, 1): data parallelism with the optimizer state ZeRO-1 over the
-ranks (the MoE, MLA and hybrid configs raise there: ROADMAP.md, Queue 1
-F6).
+ranks (an MoE layer's groups and, where they are large, its experts
+over them too).
 """
 
 from __future__ import annotations

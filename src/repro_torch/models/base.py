@@ -21,8 +21,9 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed.sharding import MeshRules
 from repro_torch.models import layers as L
-from repro_torch.tree import map_with_path, tree_map
+from repro_torch.tree import flatten_with_path, map_with_path, tree_map
 
 
 def _save_dots(_ctx, op, *args, **_kw):
@@ -44,13 +45,17 @@ class LM(nn.Module):
     hook of a distributed run (``MeshRules.act_sharder()``), applied to
     the (B, S, D) input of every layer of the full-sequence pass, where
     the reference applies it.  ``par``: None, or this rank's place on a
-    mesh (``distributed.collectives.Par``) whose ``model`` axis holds
-    more than one device: the model then runs on this rank's shards of
-    the parameters and the caches and holds the tensor-parallel
-    collectives itself (the embedding over a V shard, column- and
-    row-parallel projections, caches of this rank's KV heads or slots).
-    Without it, or with a ``model`` axis of one, every op is the one the
-    model runs without a mesh.
+    mesh of more than one device (``distributed.collectives.Par``): the
+    model then runs on this rank's shards of the parameters and the
+    caches and holds the collectives itself (the embedding over a V
+    shard, column- and row-parallel projections, caches of this rank's
+    KV heads or slots, MLA's latent slots, the routed experts over
+    ``model`` or the data plane).  Where the ``model`` axis is 1 only
+    the MoE layers use it (their groups and experts over the data
+    plane); every other op is the one the model runs without a mesh.
+    ``batch_sharded``: the tokens are this rank's share of the data
+    plane's batch (a serve step sets it false where the plane does not
+    divide the batch: every data rank then holds it all).
     """
 
     def __init__(self, cfg, remat: bool = True,
@@ -63,7 +68,8 @@ class LM(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.shard_act = shard_act
-        self.par = par if par is not None and par.model_size > 1 else None
+        self.par = par
+        self.batch_sharded = True
         self.moe_log: list | None = None
 
     def param_shapes(self) -> dict:
@@ -125,10 +131,14 @@ class LM(nn.Module):
 
     def _slots(self):
         """``par`` where the attention caches shard their slots over
-        ``model`` (KV does not divide it: ``MeshRules.cache_spec``), else
-        None."""
-        return self.par if self.par is not None \
-            and not self.par.tp(self.cfg.kv_store) else None
+        ``model`` (MLA's latent cache, ``MeshRules.latent_cache_spec``;
+        GQA's where KV does not divide it, ``MeshRules.cache_spec``),
+        else None."""
+        par = self.par
+        if par is None or par.model_size == 1:
+            return None
+        return par if self.cfg.use_mla or not par.tp(self.cfg.kv_store) \
+            else None
 
     def _slot_range(self, t_local: int) -> tuple[int, int]:
         """[start, stop) of the cache slots this rank holds, of a cache
@@ -175,6 +185,26 @@ class LM(nn.Module):
         inside = (idx >= 0) & (idx < hi - lo)
         x = table[torch.where(inside, idx, 0)]
         return vp.reduce_from_model(torch.where(inside[..., None], x, 0))
+
+    def _moe(self, x, p):
+        """The MoE FFN of ``x`` (``layers.moe``), on a mesh with this
+        rank's tokens and shards (its experts' layout: ``expert_layout``)."""
+        return L.moe(x, p, self.cfg, self.moe_log, par=self.par,
+                     layout=self.expert_layout,
+                     batch_sharded=self.batch_sharded)
+
+    @functools.cached_property
+    def expert_layout(self):
+        """The spec entries (E, D, F) of the routed experts' ``wg`` on the
+        mesh (``MeshRules.param_spec`` without FSDP: the FSDP gathers
+        come before the model), or None without a mesh."""
+        if self.par is None or not self.cfg.n_experts:
+            return None
+        rules = MeshRules(self.par.mesh)
+        for path, spec in flatten_with_path(self.param_shapes()):
+            if path[-1] == "wg" and rules.moe_leaf(path, spec.shape):
+                return tuple(rules.param_spec(path, spec.shape))[-3:]
+        raise ValueError(f"{self.cfg.name}: no routed-expert leaf")
 
     def _attend_cached(self, h, p, *, k, v, q_pos, kv_pos, window=0,
                        causal: bool = True, cached: bool = False):

@@ -456,12 +456,26 @@ def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg,
     another run's choices so), the gates then the softmax of those
     experts' logits.
     """
+    return _routing(xg.float() @ router.float(), cfg, idx)
+
+
+def route_groups(logits: torch.Tensor, cfg, idx: torch.Tensor | None = None,
+                 first: int = 0) -> Routing:
+    """``moe_route``'s routing of groups of fp32 router logits (G, M, E),
+    where a mesh computes them (``moe_sharded``).  ``first``: the global
+    index of the groups' first token, for a check that replays another
+    run's routing token by token; the routing itself does not read it."""
+    del first
+    return _routing(logits, cfg, idx)
+
+
+def _routing(logits: torch.Tensor, cfg, idx: torch.Tensor | None
+             ) -> Routing:
     E, K = cfg.n_experts, cfg.experts_per_token
-    G, M, _ = xg.shape
-    logits = xg.float() @ router.float()  # (G, M, E)
+    G, M, _ = logits.shape
     top, order = torch.sort(logits, dim=-1, descending=True, stable=True)
     margin = top[..., K - 1] - top[..., K] if K < E \
-        else torch.full((G, M), math.inf, device=xg.device)
+        else torch.full((G, M), math.inf, device=logits.device)
     if idx is None:
         top, idx = top[..., :K], order[..., :K]
     else:
@@ -475,8 +489,8 @@ def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg,
     return Routing(idx, gates, pos, pos < C, margin, C)
 
 
-def moe(x: torch.Tensor, p: Params, cfg, log: list | None = None
-        ) -> torch.Tensor:
+def moe(x: torch.Tensor, p: Params, cfg, log: list | None = None,
+        par=None, layout=None, batch_sharded: bool = True) -> torch.Tensor:
     """Top-k MoE with the reference's capacity-based routing.
 
     x: (B, S, D), in groups of ``moe_group_size`` tokens (the last padded
@@ -486,8 +500,12 @@ def moe(x: torch.Tensor, p: Params, cfg, log: list | None = None
     expert outputs back, weighted by the gates rounded to bf16 as the
     reference's combine is: the same function, without the one-hots.
     ``log``, when given, gets the routing of the real tokens: ``(idx,
-    keep, margin)``, (B, S, K), (B, S, K) and (B, S) tensors.
+    keep, margin)``, (B, S, K), (B, S, K) and (B, S) tensors.  ``par``,
+    ``layout`` and ``batch_sharded``: on a mesh of more than one device,
+    ``moe_sharded``'s.
     """
+    if par is not None:
+        return moe_sharded(x, p, cfg, log, par, layout, batch_sharded)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     N = B * S
@@ -523,6 +541,151 @@ def moe(x: torch.Tensor, p: Params, cfg, log: list | None = None
     return y.to(x.dtype)
 
 
+def _touched_groups(n_local: int, d: int, M: int) -> int:
+    """The most groups of M tokens that one of d ranks' n_local
+    consecutive tokens reach into."""
+    return max((r * n_local + n_local - 1) // M - (r * n_local) // M + 1
+               for r in range(d))
+
+
+def moe_sharded(x, p: Params, cfg, log, par, layout,
+                batch_sharded: bool = True) -> torch.Tensor:
+    """``moe`` on a mesh of more than one device, on this rank's tokens
+    (B, S, D) and its shards of the weights: the same function.
+
+    ``par``: this rank's place on the mesh (``collectives.Par``, also on
+    a mesh whose ``model`` axis is 1).  ``layout``: the spec entries (E,
+    D, F) of the routed experts' ``wg`` (``MeshRules.param_spec``
+    without FSDP), given, never worked out here, so a caller can force
+    either expert layout.  ``batch_sharded``: the tokens are this rank's
+    share of the data plane's batch (else every data rank holds them
+    all: a serve batch the plane does not divide).
+
+    * Router: (D, E) with E over ``model`` where it divides; its fp32
+      logits are gathered over ``model`` and the whole row sorted, so
+      ties go to the lower expert as without a mesh.
+    * Groups: the reference groups the global batch's tokens by
+      ``moe_group_size``.  Where this rank's tokens are whole groups
+      they are routed here; else a group spans data ranks (a decode
+      step's tokens are one group) and the logits are gathered over the
+      data plane, the whole groups routed (capacity and queue places
+      from every rank's tokens), and each rank keeps its own rows; its
+      gates come from its own logits.
+    * Experts over ``model`` (E / m a rank): each rank fills and computes
+      only its experts' queue places and weights their share of each
+      token in fp32; the shares are summed over ``model`` (one
+      all-reduce a layer, no all-to-all).
+    * Experts over the data plane (F over ``model`` where it divides):
+      each rank builds the (G, E, C, D) queue of its tokens, an
+      all-to-all sends expert chunk j to data rank j, the rank computes
+      (d, G, E/d, C, D) on its experts (its F slice: the output a share
+      over ``model``), and a second all-to-all brings the outputs back
+      to be combined.  Where the batch is not sharded, each data rank
+      computes its experts for all the tokens and the shares are summed
+      over the data plane (no gradient rule: a serve batch).
+    * Experts whole: every rank computes them all.
+
+    Under autograd the router's gradient is counted once: where a rank
+    computes a share, the fp32 combine weights pass ``copy_to_model``,
+    so their gradient is summed over ``model`` before it is rounded to
+    bf16 (the rounding of the weights' cast, once, as without a mesh)
+    and every rank holds the whole gradient of the gates; the logits'
+    gather then keeps this rank's slice of it (``gather_whole``), and
+    ``x`` reaches a router sharded over ``model`` through
+    ``copy_to_model``.  The queues' all-to-all runs back in the
+    backward, so each rank's expert gradients hold every data rank's
+    tokens and are not summed over the data plane
+    (``MeshRules.expert_parallel``).
+    """
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    e_entry, _, f_entry = layout
+    data_ep = par.is_data(e_entry)
+    dp = par.data if batch_sharded and par.data_size > 1 else None
+    d, off = (dp.size, dp.rank) if dp is not None else (1, 0)
+    N_l = B * S
+    off *= N_l
+    M = min(cfg.moe_group_size, N_l * d)
+    share = par.model_size > 1 and "model" in (e_entry, f_entry)
+
+    # the router's logits, whole rows
+    xt = x.reshape(N_l, D)
+    xin = par.copy_to_model(xt) if share else xt
+    router = p["router"]
+    if router.shape[-1] < E:  # E over model
+        xr = xin if share else par.copy_to_model(xt)
+        logits = par.gather_whole(xr.float() @ router.float(), -1, "model")
+    else:
+        logits = xt.float() @ router.float()
+
+    # the routing of this rank's tokens, in the reference's groups
+    if N_l % M:  # a group spans data ranks: route the whole groups
+        with torch.no_grad():
+            full = logits.detach()
+            if dp is not None:
+                full = par.gather(full, 0, par.data_axes)
+            full = F.pad(full, (0, 0, 0, (-full.shape[0]) % M))
+            r = route_groups(full.reshape(-1, M, E), cfg)
+        rows = slice(off, off + N_l)
+        idx, pos, keep = (t.reshape(-1, K)[rows] for t in (r.idx, r.pos,
+                                                             r.keep))
+        margin = r.margin.reshape(-1)[rows]
+        gates = torch.softmax(logits.gather(-1, idx), dim=-1)
+        Gt = _touched_groups(N_l, d, M)
+        group = (off + torch.arange(N_l, device=x.device)) // M - off // M
+    else:
+        r = route_groups(logits.reshape(-1, M, E), cfg, first=off)
+        idx, pos, keep, gates = (t.reshape(-1, K) for t in (
+            r.idx, r.pos, r.keep, r.gates))
+        margin = r.margin.reshape(-1)
+        Gt = N_l // M
+        group = torch.arange(N_l, device=x.device) // M
+    if log is not None:
+        log.append((idx.reshape(B, S, K), keep.reshape(B, S, K),
+                    margin.reshape(B, S)))
+    C = r.C
+
+    # this rank's queue places: its experts', of its tokens
+    e0, e1 = 0, E
+    if e_entry == "model" and par.model_size > 1:
+        e0, e1 = par.model.chunk(E)
+    elif data_ep and dp is None and par.data_size > 1:
+        e0, e1 = par.data.chunk(E)
+    Eq = e1 - e0
+    places = Gt * Eq * C
+    mine = keep & (idx >= e0) & (idx < e1)
+    dest = torch.where(mine, (group[:, None] * Eq + idx - e0) * C + pos,
+                       places)  # (N_l, K); ``places``: a dump row
+    src = torch.full((places + 1,), N_l, dtype=torch.long, device=x.device)
+    src.scatter_(0, dest.reshape(-1), torch.arange(
+        N_l, device=x.device).repeat_interleave(K))  # place -> token
+    xz = torch.cat([xin, xin.new_zeros(1, D)])
+    xe = xz.index_select(0, src[:places]).reshape(Gt, Eq, C, D)
+    if data_ep and dp is not None:  # expert chunk j to data rank j
+        xe = par.exchange_chunks(xe.reshape(Gt, d, E // d, C, D)
+                                 .transpose(0, 1), e_entry)
+    h = F.silu(_einsum("...ecd,edf->...ecf", xe, p["wg"])) \
+        * _einsum("...ecd,edf->...ecf", xe, p["wu"])
+    ye = _einsum("...ecf,efd->...ecd", h, p["wd"])
+    if data_ep and dp is not None:  # the outputs back to their tokens
+        ye = par.exchange_chunks(ye, e_entry).transpose(0, 1)
+    yz = torch.cat([ye.reshape(places, D), ye.new_zeros(1, D)])
+    yk = yz.index_select(0, dest.reshape(-1)).reshape(N_l, K, D)
+    w = torch.where(keep, gates, 0.0).to(torch.bfloat16).float()
+    if share:  # the combine weights' gradient summed before its bf16 round
+        w = par.copy_to_model(w)
+    y = torch.einsum("nk,nkd->nd", w, yk.float())
+    if share:
+        y = par.reduce_from_model(y)
+    if data_ep and dp is None:
+        y = par.sum_over(y, e_entry)
+    y = y.to(ye.dtype).reshape(B, S, D)
+    if "shared" in p:
+        n = cfg.n_shared_experts * cfg.moe_d_ff
+        y = y + mlp(x, p["shared"], par=par if par.tp(n) else None)
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------- MLA ------
 def mla_shapes(cfg) -> dict:
     """MLA's leaves; ``kv_norm`` and ``q_norm`` are the fp32 norm
@@ -548,30 +711,42 @@ def mla_init(gen, cfg, dtype=torch.bfloat16) -> Params:
             for name, shape in mla_shapes(cfg).items()}
 
 
-def mla_queries(x, p, cfg, positions):
-    """(q_nope, q_rope): the no-position and the rotated query parts."""
+def mla_queries(x, p, cfg, positions, par=None):
+    """(q_nope, q_rope): the no-position and the rotated query parts.
+    ``par``: the tensor-parallel context where the heads shard over
+    ``model``: ``wdq`` and ``q_norm`` are whole on every rank, and their
+    output reaches this rank's heads of ``wuq`` through
+    ``copy_to_model`` (so their gradients, and ``x``'s, are whole)."""
     dn = cfg.qk_nope_head_dim
     if "wdq" in p:
         qc = rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+        if par is not None:
+            qc = par.copy_to_model(qc)
         q = _einsum("bsr,rhk->bshk", qc, p["wuq"])
     else:
-        q = _einsum("bsd,dhk->bshk", x, p["wq"])
+        q = _einsum("bsd,dhk->bshk",
+                    x if par is None else par.copy_to_model(x), p["wq"])
     return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
 
 def mla_latent(x, p, cfg, positions):
     """Per-token latent cache entries: (c_kv (B, S, kvr), k_rope (B, S,
-    dr))."""
+    dr)), whole on every rank of a mesh."""
     c = rms_norm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
     kr = rope((x @ p["wkr"])[:, :, None, :], positions, cfg.rope_theta)
     return c, kr[:, :, 0, :]
 
 
-def mla_attend_naive(x, p, cfg, *, c, k_rope, q_pos, kv_pos):
+def mla_attend_naive(x, p, cfg, *, c, k_rope, q_pos, kv_pos, par=None):
     """Train/prefill path: the latent expanded to per-head K/V, then
-    attention with q/k head dim dn + dr and v head dim dv."""
+    attention with q/k head dim dn + dr and v head dim dv.  ``par``: the
+    tensor-parallel context where the heads shard over ``model``: this
+    rank's heads attend (``c`` and ``k_rope`` reach them through
+    ``copy_to_model``) and ``wo`` is row-parallel (all-reduced)."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_nope, q_rope = mla_queries(x, p, cfg, q_pos)
+    q_nope, q_rope = mla_queries(x, p, cfg, q_pos, par)
+    if par is not None:
+        c, k_rope = par.copy_to_model(c), par.copy_to_model(k_rope)
     k_nope = _einsum("btr,rhk->bthk", c, p["wuk"])
     v = _einsum("btr,rhk->bthk", c, p["wuv"])
     k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype).expand(
@@ -579,26 +754,52 @@ def mla_attend_naive(x, p, cfg, *, c, k_rope, q_pos, kv_pos):
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                     scale=1.0 / np.sqrt(dn + dr))
-    return _einsum("bshk,hkd->bsd", out, p["wo"])
+    y = _einsum("bshk,hkd->bsd", out, p["wo"])
+    return y if par is None else par.reduce_from_model(y)
 
 
-def mla_attend_absorbed(x, p, cfg, *, c, k_rope, q_pos, kv_pos):
+def mla_attend_absorbed(x, p, cfg, *, c, k_rope, q_pos, kv_pos, slots=None,
+                        heads=None):
     """Decode path: the queries absorbed into the latent space, attending
     to the compressed (kv_lora + rope) cache itself.  The reference's
     dtypes: ``q_c`` in the activations' dtype, fp32 scores, the
-    probabilities rounded to the cache's dtype, ``ctx`` in it."""
+    probabilities rounded to the cache's dtype, ``ctx`` in it.
+
+    On a mesh, ``slots``: the context where the cache's slots shard over
+    ``model`` (``c`` / ``k_rope`` (B, T/m, ...) at the positions
+    ``kv_pos``), as ``gqa_attend_slots`` attends a GQA cache: the
+    absorbed queries of every head gathered over ``model`` (``heads``:
+    the context where the heads shard; None where each rank has them
+    all), fp32 scores over this rank's slots, the maximum and the sum
+    all-reduced, the probabilities rounded to the cache's dtype, ``ctx``
+    (B, S, H, r) summed over ``model`` in fp32; then each rank keeps its
+    own heads for ``wuv`` and the row-parallel ``wo``."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope = mla_queries(x, p, cfg, q_pos)
     q_c = _einsum("bshn,rhn->bshr", q_nope, p["wuk"])  # absorb W_uk
+    if heads is not None:
+        q_c, q_rope = heads.gather(q_c, 2, "model"), \
+            heads.gather(q_rope, 2, "model")
     scores = (torch.einsum("bshr,btr->bhst", q_c.float(), c.float())
               + torch.einsum("bshd,btd->bhst", q_rope.float(),
                              k_rope.float()))
     scores = scores / np.sqrt(dn + dr)
     mask = _mask(q_pos, kv_pos, 0, True)
     scores = torch.where(mask, scores, NEG_INF)
-    ctx = _pv(torch.softmax(scores, dim=-1), c, "bhst,btr->bshr")
+    if slots is None:
+        ctx = _pv(torch.softmax(scores, dim=-1), c, "bhst,btr->bshr")
+    else:
+        mx = slots.max_over_model(scores.amax(dim=-1, keepdim=True))
+        e = torch.exp(scores - mx)
+        prob = e / slots.reduce_from_model(e.sum(dim=-1, keepdim=True))
+        ctx = torch.einsum("bhst,btr->bshr", prob.to(c.dtype).float(),
+                           c.float())
+        ctx = slots.reduce_from_model(ctx).to(c.dtype)
+    if heads is not None:
+        ctx = heads.shard(ctx, 2, "model")
     out = _einsum("bshr,rhk->bshk", ctx, p["wuv"])  # expand with W_uv
-    return _einsum("bshk,hkd->bsd", out, p["wo"])
+    y = _einsum("bshk,hkd->bsd", out, p["wo"])
+    return y if heads is None else heads.reduce_from_model(y)
 
 
 # ---------------------------------------------------------------- Mamba ----
@@ -682,7 +883,9 @@ def _mamba_inputs(x, p, cfg, conv_state=None, par=None):
     if par is not None:
         dbc = par.copy_to_model(par.reduce_from_model(dbc))
     dt_r, Bp, Cp = torch.split(dbc, [R, N, N], dim=-1)
-    dt = F.softplus(dt_r.float() @ p["dt_proj"] + p["dt_bias"])  # fp32
+    # fp32, as jnp's matmul promotes a bf16 ``dt_proj`` (a train step's
+    # new parameters are bf16)
+    dt = F.softplus(dt_r.float() @ p["dt_proj"].float() + p["dt_bias"])
     return x_conv, z, dt, Bp.float(), Cp.float(), new_conv_state
 
 

@@ -82,7 +82,7 @@ class TransformerLM(LM):
         cfg = self.cfg
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.n_experts:
-            return x + L.moe(h2, p["ffn"], cfg, self.moe_log)
+            return x + self._moe(h2, p["ffn"])
         return x + L.mlp(h2, p["ffn"], cfg.act, self._tp(cfg.d_ff))
 
     def _attend(self, h, p, window: int, pos):
@@ -92,7 +92,8 @@ class TransformerLM(LM):
         if cfg.use_mla:
             c, kr = L.mla_latent(h, p["attn"], cfg, pos)
             return L.mla_attend_naive(h, p["attn"], cfg, c=c, k_rope=kr,
-                                      q_pos=pos, kv_pos=pos), (c, kr)
+                                      q_pos=pos, kv_pos=pos,
+                                      par=self._tp(cfg.n_heads)), (c, kr)
         k, v = L.gqa_project_kv(h, p["attn"], cfg, pos, self._heads())
         return self._attend_cached(h, p["attn"], k=k, v=v, q_pos=pos,
                                    kv_pos=pos, window=window), (k, v)
@@ -141,13 +142,14 @@ class TransformerLM(LM):
         dtype, the cached entries are rounded to bf16.  GQA caches k/v
         (L, B, T, KV, hd); MLA its latent ``c`` (L, B, T, kv_lora_rank)
         and rotated key part ``kr`` (L, B, T, qk_rope_head_dim).  On a
-        mesh: this rank's KV heads, or its T / m slots (``B`` is the
-        local batch)."""
+        mesh: this rank's KV heads, or its T / m slots (MLA's always:
+        ``MeshRules.latent_cache_spec``; ``B`` is the local batch)."""
         cfg = self.cfg
         nl = cfg.n_layers
         if cfg.use_mla:
-            shapes = ((nl, B, T, cfg.kv_lora_rank),
-                      (nl, B, T, cfg.qk_rope_head_dim))
+            t = self._local_slots(T)
+            shapes = ((nl, B, t, cfg.kv_lora_rank),
+                      (nl, B, t, cfg.qk_rope_head_dim))
         else:
             shapes = ((nl, B, self._local_slots(T), self._local_kv(),
                        cfg.head_dim),) * 2
@@ -180,7 +182,8 @@ class TransformerLM(LM):
         ``cache`` in place at ``pos`` (the reference returns a new cache
         through ``dynamic_update_slice``); the returned cache is the same
         dict.  MLA attends absorbed, against the latent cache itself.  In
-        the sequence-sharded layout only the rank that holds slot ``pos``
+        the sequence-sharded layout (MLA's on a mesh, GQA's where KV does
+        not divide ``model``) only the rank that holds slot ``pos``
         writes it.
         """
         cfg = self.cfg
@@ -203,8 +206,10 @@ class TransformerLM(LM):
                     cache[name][i, :, pos - t0] = entry[:, 0]
             a, b = cache[names[0]][i], cache[names[1]][i]
             if cfg.use_mla:
-                att = L.mla_attend_absorbed(h, p["attn"], cfg, c=a, k_rope=b,
-                                            q_pos=q_pos, kv_pos=kv_pos)
+                att = L.mla_attend_absorbed(
+                    h, p["attn"], cfg, c=a, k_rope=b, q_pos=q_pos,
+                    kv_pos=kv_pos, slots=self._slots(),
+                    heads=self._tp(cfg.n_heads))
             else:
                 att = self._attend_cached(h, p["attn"], k=a, v=b,
                                           q_pos=q_pos, kv_pos=kv_pos,

@@ -17,9 +17,11 @@ their output placements (``sharding.sharded``).  On a mesh of more than
 one device the model holds this rank's place on it
 (``distributed.collectives.Par``): it computes on its shards with
 explicit collectives, and FSDP leaves are all-gathered over the data
-plane at the start of each step; the MoE, MLA and hybrid configs raise
-``NotImplementedError`` there (``sharding.multi_device_gap``: ROADMAP.md,
-Queue 1 F6).  Decode writes the cache in place, as the port's models do.
+plane at the start of each step (a routed-expert leaf over the data
+plane stays sharded: the MoE layer's all-to-all computes on it).  Where
+the data plane does not divide a serve batch, every data rank holds the
+whole batch (``LM.batch_sharded``).  Decode writes the cache in place,
+as the port's models do.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch.distributed.collectives import Par
 from repro_torch.distributed.sharding import (MeshRules, P, Sharding,
-                                              multi_device_gap, sharded)
+                                              sharded)
 from repro_torch.models import api
 from repro_torch.train.step import batch_shardings
 from repro_torch.tree import map_with_path
@@ -60,9 +62,10 @@ def build_prefill_step(cfg, rules: MeshRules, shape):
     fn(params, batch) -> (last-token logits (B, V), cache).  The cache
     has ``seq_len`` slots, or as many as the prompt fills if more (a
     VLM's patches come on top of its tokens), as the reference's.
+    ``fn.model`` is the model it runs (its ``moe_log``).
     """
-    model, gather, gap = _mesh_model(cfg, rules)
     B, S = shape.global_batch, shape.seq_len
+    model, gather = _mesh_model(cfg, rules, B)
 
     def prefill(params, batch):
         with torch.no_grad():
@@ -73,23 +76,22 @@ def build_prefill_step(cfg, rules: MeshRules, shape):
     batch_sh = batch_shardings(cfg, rules)
     cache_sh = cache_shardings(cfg, api.cache_specs(cfg, shape), rules, B)
     out_sh = (_logits_sharding(cfg, rules, B), cache_sh)
-    return (sharded(prefill, out_sh, rules.mesh, gap), (param_sh, batch_sh),
-            out_sh, param_shapes)
+    fn = sharded(prefill, out_sh, rules.mesh)
+    fn.model = model
+    return fn, (param_sh, batch_sh), out_sh, param_shapes
 
 
-def _mesh_model(cfg, rules: MeshRules):
-    """(the model, the FSDP gather of its parameters, the reason it
-    cannot run on the mesh or None): on a mesh of more than one device
-    the model computes on this rank's shards."""
+def _mesh_model(cfg, rules: MeshRules, batch: int):
+    """(the model, the FSDP gather of its parameters): on a mesh of more
+    than one device the model computes on this rank's shards of a batch
+    of ``batch`` rows."""
     par = Par.of(rules.mesh)
-    gap = multi_device_gap(cfg) if par is not None else None
-    if gap is not None:
-        par = None
     model = api.get_model(cfg, shard_act=rules.act_sharder(), par=par)
     if par is None:
-        return model, lambda params: params, gap
-    specs = rules.params_pspecs(model.param_shapes())
-    return model, lambda params: par.gather_fsdp(params, specs), gap
+        return model, lambda params: params
+    model.batch_sharded = rules._batch_entry(batch) is not None
+    specs = rules.fsdp_pspecs(model.param_shapes())
+    return model, lambda params: par.gather_fsdp(params, specs)
 
 
 def _logits_sharding(cfg, rules: MeshRules, batch: int) -> Sharding:
@@ -107,10 +109,11 @@ def build_decode_step(cfg, rules: MeshRules, shape):
     """Returns (fn, in_shardings, out_shardings, cache_shapes).
 
     fn(params, cache, token, pos) -> (logits (B, V), cache), the new
-    entries written into ``cache`` in place.
+    entries written into ``cache`` in place.  ``fn.model`` is the model
+    it runs.
     """
-    model, gather, gap = _mesh_model(cfg, rules)
     B = shape.global_batch
+    model, gather = _mesh_model(cfg, rules, B)
 
     def decode(params, cache, token, pos):
         with torch.no_grad():
@@ -124,8 +127,9 @@ def build_decode_step(cfg, rules: MeshRules, shape):
     pos_sh = Sharding.of(rules.mesh, P())
     out_sh = (_logits_sharding(cfg, rules, B), cache_sh)
     in_sh = (param_sh, cache_sh, tok_sh, pos_sh)
-    return (sharded(decode, out_sh, rules.mesh, gap), in_sh, out_sh,
-            cache_shapes)
+    fn = sharded(decode, out_sh, rules.mesh)
+    fn.model = model
+    return fn, in_sh, out_sh, cache_shapes
 
 
 def rules_dsize(rules: MeshRules) -> int:

@@ -20,16 +20,16 @@ The state's shardings are the reference's: the parameters by
 ``MeshRules``, the optimizer state ZeRO-1 over the data plane
 (``opt_state_shardings``), the batch over the data plane.  On a mesh of
 more than one device (``_MeshStep``) the model computes on this rank's
-shards with its tensor-parallel collectives; FSDP leaves are
-all-gathered over the data plane before the step's first layer (per
-step) and their gradients reduce-scattered back; each rank's loss is its
-share of the global mean, so the other gradients and the loss are summed
-over the data plane once, after the microbatches; the global norm counts
-every shard once; each rank updates its ZeRO-1 slice of master, m and v
-(int8 moments in the whole tensor's blocks: ``optimizer.Int8Blocks``)
-and the new parameters are all-gathered over the data plane.  The MoE,
-MLA and hybrid configs raise ``NotImplementedError`` there
-(``sharding.multi_device_gap``).  Donation is not ported.
+shards with its collectives; FSDP leaves are all-gathered over the data
+plane before the step's first layer (per step) and their gradients
+reduce-scattered back; each rank's loss is its share of the global
+mean, so the other gradients and the loss are summed over the data
+plane once, after the microbatches, but for the routed experts over the
+data plane (their all-to-all brings every data rank's tokens to their
+gradients already); the global norm counts every shard once; each rank
+updates its ZeRO-1 slice of master, m and v (int8 moments in the whole
+tensor's blocks: ``optimizer.Int8Blocks``) and the new parameters are
+all-gathered over the data plane.  Donation is not ported.
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.collectives import Par
-from repro_torch.distributed.sharding import (MeshRules, P, Sharding,
-                                              multi_device_gap)
+from repro_torch.distributed.sharding import MeshRules, P, Sharding
 from repro_torch.models import api
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import at, flatten_with_path, map_with_path, tree_map
@@ -88,16 +87,14 @@ def build_train_step(cfg, rules: MeshRules, tcfg: TrainStepConfig):
     on a mesh of more than one device."""
     device = torch.device(rules.mesh.device_type)
     par = Par.of(rules.mesh)
-    gap = multi_device_gap(cfg) if par is not None else None
     model = api.get_model(cfg, remat=tcfg.remat,
                           shard_act=rules.act_sharder(),
-                          remat_policy=tcfg.remat_policy,
-                          par=None if gap else par)
+                          remat_policy=tcfg.remat_policy, par=par)
     acfg = tcfg.adamw
     param_shapes = model.param_shapes()
     opt_shapes = opt.state_shapes(param_shapes, acfg)
     opt_sh = opt_state_shardings(rules, param_shapes, opt_shapes)
-    mesh_step = None if par is None or gap else _MeshStep(
+    mesh_step = None if par is None else _MeshStep(
         par, rules, param_shapes, opt_sh, acfg)
     loss_fn = None if mesh_step is None else mesh_step.loss_fn(model)
 
@@ -159,8 +156,6 @@ def build_train_step(cfg, rules: MeshRules, tcfg: TrainStepConfig):
         return new_params, new_opt, metrics
 
     def step_fn(params, opt_state, batch):
-        if gap is not None:
-            raise NotImplementedError(gap)
         if tcfg.microbatches == 1:
             loss, grads = reduce(*value_and_grad(model, params, batch,
                                                  loss_fn))
@@ -197,6 +192,7 @@ class _MeshStep:
                  acfg: opt.AdamWConfig) -> None:
         self.par, self.acfg = par, acfg
         self.specs = rules.params_pspecs(param_shapes)
+        self.fsdp_specs = rules.fsdp_pspecs(param_shapes)
         self.daxis = rules.data_axis()
 
         def zero1(path, spec):  # the dim ZeRO-1 adds the data plane on
@@ -217,7 +213,7 @@ class _MeshStep:
     def loss_fn(self, model):
         """This rank's share of the global mean loss (its batch's mean
         over the data plane's size), on the FSDP-gathered parameters."""
-        par, specs = self.par, self.specs
+        par, specs = self.par, self.fsdp_specs
 
         def loss(params, batch):
             return model.loss(par.gather_fsdp(params, specs),
@@ -226,8 +222,10 @@ class _MeshStep:
 
     @torch.no_grad()
     def reduce(self, loss, grads):
-        """The loss, and every gradient but the FSDP leaves' (summed by
-        their gathers' backward), summed over the data plane."""
+        """The loss, and every gradient but those of the leaves over the
+        data plane, summed over it: the FSDP leaves' gradients are summed
+        by their gathers' backward, the expert-parallel leaves' hold
+        every data rank's tokens through the all-to-all's backward."""
         par, daxis = self.par, self.daxis
 
         def grad(path, g):

@@ -308,9 +308,9 @@ def test_lower_cell_whisper_tiny(meshes, shape):
                             verbose=False, device="cpu", mesh=meshes[True])
     assert (res["arch"], res["shape"], res["mesh"], res["chips"]) == \
         ("whisper_tiny", shape, "2x16x16", 512)
-    for key in ("memory_analysis", "xla_cost_analysis",
-                "collectives_unknown"):
+    for key in ("memory_analysis", "xla_cost_analysis"):
         assert res[key] is None, key
+    assert "collectives_unknown" not in res  # every step shards
     # one rank's sharded step: its collectives, times the chips
     assert res["n_collectives"] > 0 and res["collectives"]["all-reduce"] > 0
     assert res["coll_bytes"] == res["coll_bytes_per_chip"] * 512 > 0
