@@ -87,8 +87,8 @@ through the entry points a user calls, on the card:
    + ``FLASH_BF16_A`` (the line prints the readings the constants come
    from); at layer 0's and the long shape a control, the plain version
    with the keys shifted by one slot, must read above that gate.  fp32
-   copies of every shape but hd 256 are held within 2e-5; both dtypes
-   are held against ``layers.attention`` within 2e-2 (bf16) or 2e-5
+   copies of every shape, hd 256 included, are held within 2e-5; both
+   dtypes are held against ``layers.attention`` within 2e-2 (bf16) or 2e-5
    (fp32), the tolerances of ``tests/test_flash_attn.py``.  Then K6 is
    timed at the long shape in bf16 and fp32 and at layer 0's shape (per
    call and on the device alone), each beside
@@ -100,7 +100,9 @@ through the entry points a user calls, on the card:
    In bf16 K6 is also held and timed (``device_ms`` beside SDPA's) at
    the attention shapes of two more configs' layers, at the serve batch
    and prompt: gemma3-1b's (16 stored query heads, one KV head, head dim
-   256, window 512) and internlm2-20b's (48:8 heads, head dim 128).
+   256, window 512) and internlm2-20b's (48:8 heads, head dim 128).  In
+   fp32 it is timed the same way at layer 0's shape and at hd 128 and
+   256, so the fp32 row shows each head dim's instance.
 
 14. ``train``: llama3.2-1b at full width, cut to 2 of its 16 layers
    (``TRAIN_LAYERS``), trained through ``Trainer(mesh=default_mesh())``
@@ -2139,7 +2141,7 @@ def ptxas_by_entry(log: str) -> dict:
 
 def ptxas_usage(log: str) -> dict:
     """K6's kernels from ``ptxas_by_entry``: {"bf16" | "fp32": {hd: {...}}}."""
-    kinds = {"flash_wgmma_kernel": "bf16", "flash_fp32_kernel": "fp32"}
+    kinds = {"flash_wgmma_kernel": "bf16", "flash_fma_kernel": "fp32"}
     out: dict = {}
     for fn, use in ptxas_by_entry(log).items():
         k = re.search(r"(flash_[a-z0-9]+_kernel)ILi(\d+)E", fn)
@@ -2149,14 +2151,16 @@ def ptxas_usage(log: str) -> dict:
 
 
 def flash_bound(q, k, v, causal: bool, window: int) -> float:
-    """K6's bf16 bound in ms: each input read once and the output written
-    once at HBM's rate, or 4 hd operations a live pair at the bf16 tensor
-    core peak, whichever is larger."""
+    """K6's bound in ms: each input read once and the output written once
+    at HBM's rate, or 4 hd operations a live pair at the peak of q's dtype
+    (bf16: the tensor cores; fp32: the CUDA cores), whichever is larger."""
     B, S, H, hd = q.shape
     T = k.shape[1]
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    size = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * size
     ops_n = 4.0 * B * H * hd * live_pairs(S, T, causal, window)
-    return max(nbytes / PEAK_BYTES_PER_S, ops_n / PEAK_BF16_TC_PER_S) * 1e3
+    peak = PEAK_BF16_TC_PER_S if size == 2 else PEAK_OPS_PER_S
+    return max(nbytes / PEAK_BYTES_PER_S, ops_n / peak) * 1e3
 
 
 def flash_phase(sizes: Sizes, device, layer0, reps: int
@@ -2202,8 +2206,8 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
         cases.append(("long", long, True, 0, seed))
         cases += [(f"{nm}_bf16", cast(x, bf16), c, w, seed)
                   for nm, x, c, w in small]
-        cases.append(("hd256", rand(rng, 2, 256, 768, 8, 1, 256, bf16),
-                      True, 0, seed))
+        hd256 = rand(rng, 2, 256, 768, 8, 1, 256, bf16)
+        cases.append(("hd256", hd256, True, 0, seed))
         # two more configs' attention at the serve batch and prompt
         layers = {name: (rand(rng, Bs, Ps, Ps, H, KV, hd, bf16), window)
                   for name, H, KV, hd, window in LAYER_SHAPES}
@@ -2214,6 +2218,13 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
             long0 = long
             fp32_cases.append(("long_fp32", cast(long, f32), True, 0, seed))
             fp32_cases += [(nm, x, c, w, seed) for nm, x, c, w in small]
+            fp32_cases.append(("hd256_fp32", cast(hd256, f32), True, 0,
+                               seed))
+    # the fp32 kernel's other head dims, timed: by-shape key -> case
+    fp32_named = {c[0]: c[1] for c in fp32_cases}
+    fp32_timed = {"serve_layer0_fp32": fp32_named["serve_layer0_fp32"],
+                  "hd128": fp32_named["hd128"],
+                  "hd256": fp32_named["hd256_fp32"]}
     cases += fp32_cases
 
     reset_kernels()
@@ -2273,6 +2284,8 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
                 failed.append(f"{name} (seed {seed}) vs plain")
         else:
             tol = FLASH_TOL[dtype]
+            row["gate_use"] = float(
+                (d / (tol + tol * plain.float().abs())).max())
             row["within_tol_plain"] = bool(
                 (d <= tol + tol * plain.float().abs()).all())
             if not row["within_tol_plain"]:
@@ -2350,7 +2363,13 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
                             device),
                 sdpa(*qkv, window=window)[1] if cuda else None,
                 flash_bound(*qkv, True, window))
-    del q32, k32, v32, layers0
+        fp32_by_shape = {
+            name: (device_time([lambda qkv=qkv: ops.flash_attention(*qkv)],
+                               device),
+                   sdpa(*qkv)[1] if cuda else None,
+                   flash_bound(*qkv, True, 0))
+            for name, qkv in fp32_timed.items()}
+    del q32, k32, v32, layers0, fp32_named, fp32_timed
     pairs = live_pairs(S, T, True, 0)
     ops_n = 4.0 * B * H * hd * pairs
     usage = ptxas_usage(_build.BUILD_INFO["log"])
@@ -2388,7 +2407,12 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
         bound_ms_by_shape={k: v[2] for k, v in by_shape.items()},
         shape_by_name={name: [Bs, Ps, Ps, H, KV, hd, window] for
                        name, H, KV, hd, window in LAYER_SHAPES})
-    rows[1]["tol"] = FLASH_TOL["float32"]
+    rows[1].update(
+        tol=FLASH_TOL["float32"],
+        device_ms_by_shape={k: v[0] for k, v in fp32_by_shape.items()},
+        library_device_ms_by_shape={k: v[1] for k, v in
+                                    fp32_by_shape.items()},
+        bound_ms_by_shape={k: v[2] for k, v in fp32_by_shape.items()})
     line = {"phase": "flash", "launches": launches, "shapes": shapes,
             "bf16_gate": {"c": FLASH_BF16_C, "a": FLASH_BF16_A,
                           "split": FLASH_GATE_SPLIT},

@@ -1,5 +1,6 @@
 // Flash attention (GQA, causal and sliding-window masks) for Hopper:
-// bf16 on the tensor cores (wgmma fed by TMA), fp32 on the CUDA cores.
+// bf16 on the tensor cores (wgmma), fp32 on the CUDA cores (FFMA), both
+// fed by a ring of TMA loads.
 //
 // Replaces the JAX reference's Pallas kernel
 // src/repro/kernels/flash_attn.py::_kernel (launched by _flash_padded,
@@ -14,11 +15,12 @@
 // What bounds it on an H100: operations.  A causal pass does 4 hd
 // operations per live query-key pair against reading q, k and v once and
 // writing o once; at S = T = 8192, 32/8 heads, hd 64 that is 2.75e11
-// operations (0.278 ms at the 989 TFLOP/s of the bf16 tensor cores)
-// against 84 MB (0.025 ms at 3.35 TB/s).  Beside the products, each
-// score costs one exp on the MUFU units (16 a clock an SM): at hd 64
-// that is one exp per 256 tensor-core operations, about the products'
-// own time, so the exps must run under the products.
+// operations: 0.278 ms at the 989 TFLOP/s of the bf16 tensor cores
+// against 84 MB (0.025 ms at 3.35 TB/s), or 4.10 ms at the 67 TFLOP/s of
+// the fp32 CUDA cores against 168 MB (0.050 ms, about 1/80 of it).
+// Beside the products, each score costs one exp on the MUFU units (16 a
+// clock an SM): at hd 64 that is one exp per 256 tensor-core operations,
+// about the products' own time, so the exps must run under the products.
 //
 // bf16 (flash_wgmma_kernel): q k^T from bf16 inputs with fp32 sums is
 // exactly what the reference computes (it casts q and k to fp32; bf16 x
@@ -52,9 +54,44 @@
 //   or past T; tiles masked for every row of a warpgroup are skipped
 //   (their result is what visiting them would give), and the heaviest
 //   query tiles launch first.
-// fp32 (flash_fp32_kernel): TF32 would break the 2e-5 tolerance, so fp32
-// stays on the CUDA cores: 256 threads own 64 queries, fp32 tiles in
-// shared memory, a 16 x 16 thread grid over each 64 x 64 score tile.
+// fp32 (flash_fma_kernel): the products stay on the CUDA cores, because
+// no tensor-core route holds the 2e-5 tolerance for every input.  Plain
+// TF32 breaks it.  Split TF32 (a = hi + lo; hi hi + hi lo + lo hi, fp32
+// sums), emulated in numpy with cvt.rna rounding and the online softmax
+// over 64-key tiles, reads 2.4-4.2% of the gate 2e-5 + 2e-5 |plain| on
+// standard normal inputs, 43% on inputs scaled x2 and 285% scaled x4
+// (scores of std 16), where fp32 FMAs in the same order read 1%, 6% and
+// 3% (time_kernels.py --flash reads this kernel on such inputs on the
+// card).  On the CUDA cores the bound is the FFMA issue rate: an SM issues
+// 4 warp instructions a clock, so every shared load, softmax step and
+// address computation takes a slot from the FMAs, and shared memory
+// serves one 128-byte wavefront a clock beside them.
+// - TMA brings Q once, then K_i and V_i by turns into one ring of SLOTS
+//   tile slots with a full mbarrier each, so K_i+1 lands during tile i's
+//   P.V and V_i+1 during the next Q.K^T.  No warp is set apart to load
+//   (a ninth warp would cap every thread at 168 registers): thread 0
+//   fills the ring, and the last warp to release a slot (a shared count)
+//   refills it.  A 128-byte swizzle row holds 32 fp32 columns: a row
+//   takes hd / 32 boxes; rows past S or T come back as zeros.
+// - NW = 8 warps own WQ = 4 MQ queries each, MQ = 512 / hd.  In
+//   Q.K^T a warp's lanes are 4 query groups x 8 key groups and a thread
+//   holds MQ x 8 scores (queries qg + 4i, keys kg + 8j); in P.V the same
+//   lanes are 4 query groups x 8 column groups and a thread holds MQ rows
+//   of its 16-byte chunk kg of every box: 64 accumulators at every hd.
+//   At hd 64 each 16-byte shared load feeds 16 FFMAs in both products.
+// - the 128-byte swizzle puts chunk c of a box's row r at c ^ (r % 8).  The
+//   8 key rows a warp reads at once (and the 8 chunks of one V row) cover
+//   the 8 phases, and the 4 query rows are broadcast to 8 lanes each, so
+//   every shared load is one wavefront.  A thread's addresses carry its
+//   phase in bits 4-6: a chunk's address is one XOR away.
+// - p goes through a warp-private buffer in shared memory (rows padded to
+//   BK + 8 floats: its stores and loads are conflict-free), ordered by
+//   __syncwarp alone, so the warps drift apart and one warp's softmax runs
+//   under the others' products; l stays per lane until the end.
+// - exp is ex2.approx with log2(e) folded into the scale; masks apply only
+//   on tiles at the causal diagonal, the window's edge or past T; tiles
+//   masked for every row of a warp are only waited for and released; the
+//   heaviest query tiles of every head launch before any lighter one.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,206 +107,65 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// ---------------------------------------------------------------------------
-// fp32: the CUDA-core kernel.
-namespace fp32 {
-
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr int LDP = BK + 4;
-constexpr float NEG_INF = -1e30f;
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * BQ * (HD + 4) + BQ * LDP);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One (BQ or BK) x HD tile of rows [row0, row0 + 64) of a (., len, ., HD)
-// tensor at `base` (row stride `rs` elements) into shared memory as fp32.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ base,
-                                          long long rs, int row0, int len) {
-  constexpr int LD = HD + 4;
-  for (int i = threadIdx.x; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD;
-    const int row = row0 + r;
-    dst[r * LD + d] =
-        row < len ? base[static_cast<long long>(row) * rs + d] : 0.f;
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: fetch it from the
+// driver through the runtime, so the library links without -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-    flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, int S,
-                      int Tn, int H, int KV, long long qsb, long long qss,
-                      long long qsh, long long ksb, long long kss,
-                      long long ksh, long long vsb, long long vss,
-                      long long vsh, float scale, int causal, int window) {
-  constexpr int LD = HD + 4;
-  constexpr int NG = HD / 64;  // float4 column groups of a thread in P.V
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sKV = sQ + BQ * LD;
-  float* sP = sKV + BK * LD;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nq = (S + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q_offset = Tn - S;
-
-  load_tile<HD>(sQ, q + b * qsb + h * qsh, qss, q0, S);
-  const float* kb = k + b * ksb + kvh * ksh;
-  const float* vb = v + b * vsb + kvh * vsh;
-
-  float m[4], l[4], acc[4][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
-  }
-
-  const int q_first = q_offset + q0;
-  const int q_last = q_offset + min(q0 + BQ, S) - 1;
-  const int nk = (Tn + BK - 1) / BK;
-  const int kt_hi = causal ? min(nk, q_last / BK + 1) : nk;
-  const int kt_lo = window > 0 ? max(0, q_first - window + 1) / BK : 0;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's P.V is done with sKV and sP
-    load_tile<HD>(sKV, kb, kss, k0, Tn);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&sQ[(ty + 16 * i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(&sKV[(tx + 16 * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q_first + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool live = kp < Tn;
-        if (causal) live = live && kp <= qp;
-        if (window > 0) live = live && kp > qp - window;
-        s[i][j] = live ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps += p;
-        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * corr + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= corr;
-    }
-
-    __syncthreads();  // every thread is done reading K; sP is written
-    load_tile<HD>(sKV, vb, vss, k0, Tn);
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&sP[(ty + 16 * i) * LDP + j]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &sKV[(j + jj) * LD + 64 * g + 4 * tx]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = jj == 0 ? pa[i].x : jj == 1 ? pa[i].y
-                          : jj == 2 ? pa[i].z : pa[i].w;
-            acc[i][4 * g + 0] = fmaf(p, vv.x, acc[i][4 * g + 0]);
-            acc[i][4 * g + 1] = fmaf(p, vv.y, acc[i][4 * g + 1]);
-            acc[i][4 * g + 2] = fmaf(p, vv.z, acc[i][4 * g + 2]);
-            acc[i][4 * g + 3] = fmaf(p, vv.w, acc[i][4 * g + 3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((static_cast<long long>(b) * S + row) * H + h) * HD;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        orow[64 * g + 4 * tx + c] = acc[i][4 * g + c] / denom;
-  }
+// A 4-D map over a (B, len, heads, hd) tensor of `type` (bf16 or fp32)
+// read through its (batch, sequence, head) strides in elements: dims (hd,
+// heads, len, B), boxes of one 128-byte swizzle row of columns (64 bf16
+// or 32 fp32) x 1 head x `rows` rows x 1 batch; rows past len read as
+// zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+              int B, int len, int heads, int hd, long long sb, long long ss,
+              long long sh, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * size,
+                                 static_cast<cuuint64_t>(ss) * size,
+                                 static_cast<cuuint64_t>(sb) * size};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / size), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tn, int H, int KV, const long long* st, float scale,
-           int causal, int window, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fp32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fp32_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Tn, H, KV,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
-      causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace fp32
 
 // ---------------------------------------------------------------------------
 // bf16: warp-specialised wgmma kernel fed by a TMA ring.
@@ -281,12 +177,6 @@ namespace sm = sears::sm90;
 
 constexpr int ROW_BYTES = 128;   // one 64-column bf16 swizzle row
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // NCW consumer warpgroups of 64 query rows each, after one producer
 // warpgroup; tiles of BK keys in a ring of STAGES slots.  Three consumer
@@ -605,65 +495,16 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetch it from the
-// driver through the runtime, so the library links without -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over a (B, len, heads, hd) bf16 tensor read through its
-// (batch, sequence, head) strides in elements: dims (hd, heads, len, B),
-// boxes of 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzle;
-// rows past len read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int len, int heads,
-              int hd, long long sb, long long ss, long long sh, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(len),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int Tn, int H, int KV, const long long* st, float sl2, int causal,
            int window, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, S, H, HD, st[0], st[1], st[2], 64) ||
-      !make_map(&km, k, B, Tn, KV, HD, st[3], st[4], st[5], C::BK) ||
-      !make_map(&vm, v, B, Tn, KV, HD, st[6], st[7], st[8], C::BK))
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map(&qm, BF16, q, B, S, H, HD, st[0], st[1], st[2], 64) ||
+      !make_map(&km, BF16, k, B, Tn, KV, HD, st[3], st[4], st[5], C::BK) ||
+      !make_map(&vm, BF16, v, B, Tn, KV, HD, st[6], st[7], st[8], C::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -678,6 +519,345 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core kernel fed by a TMA ring.
+namespace fp32 {
+
+using sears::sm90::smem_u32;
+namespace sm = sears::sm90;
+
+constexpr int ROW_BYTES = 128;  // one 32-column fp32 swizzle row
+constexpr float NEG_INF = -1e30f;
+
+// NW warps of WQ = 4 MQ queries each; K and V tiles of BK keys share one
+// ring of SLOTS slots.  MQ = 512 / hd keeps a thread's outputs at 64
+// registers (MQ rows x hd / 8 columns).  8 warps put 2 on each of the
+// SM's 4 schedulers, so a thread may hold 255 registers (hd 64 uses 254);
+// a ninth would put 3 on one and cap every thread at 168.
+template <int HD>
+struct Cfg {
+  static constexpr int NB = HD / 32;    // boxes a row; a thread's P.V chunks
+  static constexpr int MQ = 512 / HD;   // query rows a thread: 8, 4, 2
+  static constexpr int WQ = 4 * MQ;     // queries a warp
+  static constexpr int NW = 8;          // warps
+  static constexpr int BQ = NW * WQ;    // queries a block: 256, 128, 64
+  static constexpr int BK = 64;         // keys a tile
+  static constexpr int MK = BK / 8;     // keys a thread in Q.K^T
+  static constexpr int SLOTS = HD == 64 ? 4 : HD == 128 ? 3 : 2;
+  static constexpr int PST = BK + 8;    // floats a row of a warp's P
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int Q_BYTES = NB * BQ * ROW_BYTES;
+  static constexpr int TILE_BYTES = NB * BK * ROW_BYTES;  // a K or V tile
+  static constexpr int P_OFF = Q_BYTES + SLOTS * TILE_BYTES;
+  static constexpr int BAR_OFF = P_OFF + NW * WQ * PST * 4;
+  // full barriers, Q's barrier, then a release count a slot
+  static constexpr int SMEM = BAR_OFF + 8 * (SLOTS + 1) + 4 * SLOTS + 1024;
+};
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(x));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
+    flash_fma_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     float* __restrict__ o, int S, int Tn, int H, int KV,
+                     float sl2, int causal, int window) {
+  using C = Cfg<HD>;
+  constexpr int NB = C::NB, MQ = C::MQ, MK = C::MK, WQ = C::WQ;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::SLOTS, PST = C::PST;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries of the shared window
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = base;
+  unsigned char* ring = base + C::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* q_full = full + NS;
+  unsigned* released = reinterpret_cast<unsigned*>(q_full + 1);
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (static_cast<int>(gridDim.y - 1 - blockIdx.y)) * BQ;
+  const int kvh = h / (H / KV);
+  const int q_offset = Tn - S;
+  const int nk = (Tn + BK - 1) / BK;
+  // key tiles [lo, hi) that rows [first, last] need: the causal diagonal
+  // bounds them above, the window below
+  auto tile_range = [&](int first, int last, int& lo, int& hi) {
+    hi = causal ? min(nk, last / BK + 1) : nk;
+    lo = window > 0 ? max(0, first - window + 1) / BK : 0;
+  };
+  int kt_lo, kt_hi;
+  tile_range(q_offset + q0, q_offset + min(q0 + BQ, S) - 1, kt_lo, kt_hi);
+  const int n = kt_hi - kt_lo;  // the ring carries K_i, V_i: 2 n tiles
+
+  // tile u of the ring (K_u/2 if u is even, else V_u/2) into slot u % NS
+  auto issue = [&](int u) {
+    const int s = u % NS;
+    sm::mbar_expect_tx(&full[s], C::TILE_BYTES);
+    for (int nb = 0; nb < NB; ++nb)
+      sm::tma_load_4d(ring + s * C::TILE_BYTES + nb * BK * ROW_BYTES,
+                      (u & 1) ? &vmap : &kmap, &full[s], nb * 32, kvh,
+                      (kt_lo + u / 2) * BK, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      sm::mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    sm::mbar_init(q_full, 1);
+    sm::mbar_fence_init();
+    sm::mbar_expect_tx(q_full, C::Q_BYTES);
+    for (int nb = 0; nb < NB; ++nb)
+      sm::tma_load_4d(sQ + nb * BQ * ROW_BYTES, &qmap, q_full, nb * 32, h,
+                      q0, b);
+    for (int u = 0; u < min(NS, 2 * n); ++u) issue(u);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp owns query rows row0 + qg + 4 i (i < MQ)
+  const int qg = lane >> 3, kg = lane & 7;  // kg: P.V's chunk too
+  const int row0 = q0 + warp * WQ;
+  const int w_first = q_offset + row0;
+  const int w_last = q_offset + min(row0 + WQ, S) - 1;
+  int i_lo = 0, i_hi = 0;  // live tiles [i_lo, i_hi) of the ring order
+  if (row0 < S) {
+    int lo, hi;
+    tile_range(w_first, w_last, lo, hi);
+    i_lo = max(lo, kt_lo) - kt_lo;
+    i_hi = max(min(hi, kt_hi) - kt_lo, i_lo);
+  }
+  // Shared addresses with the thread's swizzle phase in bits 4-6 (every
+  // box starts on 1024 bytes): chunk c of its row is the address ^ c << 4.
+  // Q row qg + 4 i has phase qg ^ 4 (i & 1); K rows kg + 8 j phase kg; V
+  // row r's chunk kg lies at kg ^ r % 8.
+  const uint32_t qx = smem_u32(sQ) + (warp * WQ + qg) * ROW_BYTES + (qg << 4);
+  const uint32_t kx0 = smem_u32(ring) + kg * ROW_BYTES + (kg << 4);
+  const uint32_t vx0 = smem_u32(ring) + (kg << 4);
+  // this thread's row of the warp's P (rows qg + 4 i)
+  const uint32_t px = smem_u32(base + C::P_OFF) + (warp * WQ + qg) * PST * 4;
+
+  float acc[MQ][NB][4];  // O rows qg + 4 i, columns 32 t + 4 kg .. + 3
+  float m[MQ], l[MQ];    // running max (log2 units) and this lane's sum
+#pragma unroll
+  for (int i = 0; i < MQ; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NB; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+  }
+  auto wait_tile = [&](int u) {
+    sm::mbar_wait(&full[u % NS], (u / NS) & 1);
+    return u % NS;
+  };
+  // the warp is done with tile u's slot: the last warp to say so refills
+  // it with tile u + NS (a count a slot, NW a round, never reset)
+  auto release = [&](int u) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[u % NS], 1u) % C::NW == C::NW - 1 &&
+          u + NS < 2 * n)
+        issue(u + NS);
+    }
+  };
+  for (int u = 0; u < 2 * i_lo; ++u) {
+    wait_tile(u);
+    release(u);
+  }
+  sm::mbar_wait(q_full, 0);
+  for (int it = i_lo; it < i_hi; ++it) {
+    const int k0 = (kt_lo + it) * BK;
+    // S = Q K^T: MQ x MK scores a thread, 16-byte chunks of d in step
+    float sc[MQ][MK];
+#pragma unroll
+    for (int i = 0; i < MQ; ++i)
+#pragma unroll
+      for (int j = 0; j < MK; ++j) sc[i][j] = 0.f;
+    const int sk = wait_tile(2 * it);
+#pragma unroll 1
+    for (int nb = 0; nb < NB; ++nb) {
+      const uint32_t kb = kx0 + sk * C::TILE_BYTES + nb * BK * ROW_BYTES;
+      const uint32_t qb = qx + nb * BQ * ROW_BYTES;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float4 kf[MK];
+#pragma unroll
+        for (int j = 0; j < MK; ++j)
+          kf[j] = lds128((kb ^ (c << 4)) + j * 8 * ROW_BYTES);
+#pragma unroll
+        for (int i = 0; i < MQ; ++i) {
+          const float4 qf =
+              lds128((qb ^ ((c ^ 4 * (i & 1)) << 4)) + i * 4 * ROW_BYTES);
+#pragma unroll
+          for (int j = 0; j < MK; ++j) {
+            sc[i][j] = fmaf(qf.x, kf[j].x, sc[i][j]);
+            sc[i][j] = fmaf(qf.y, kf[j].y, sc[i][j]);
+            sc[i][j] = fmaf(qf.z, kf[j].z, sc[i][j]);
+            sc[i][j] = fmaf(qf.w, kf[j].w, sc[i][j]);
+          }
+        }
+      }
+    }
+    release(2 * it);
+
+    // online softmax in log2 units; masks only where they bite
+    const bool edge = k0 + BK > Tn || (causal && k0 + BK - 1 > w_first) ||
+                      (window > 0 && k0 <= w_last - window);
+#pragma unroll
+    for (int i = 0; i < MQ; ++i)
+#pragma unroll
+      for (int j = 0; j < MK; ++j) sc[i][j] *= sl2;
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < MQ; ++i)
+#pragma unroll
+        for (int j = 0; j < MK; ++j) {
+          const int kp = k0 + kg + 8 * j;
+          const int qp = w_first + qg + 4 * i;
+          bool ok = kp < Tn;
+          if (causal) ok = ok && kp <= qp;
+          if (window > 0) ok = ok && kp > qp - window;
+          sc[i][j] = ok ? sc[i][j] : NEG_INF;
+        }
+    }
+    float corr[MQ];
+#pragma unroll
+    for (int i = 0; i < MQ; ++i) {
+      float mx[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mx[j] = fmaxf(sc[i][j], sc[i][j + 4]);
+      float mr = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 4));
+      const float m_new = fmaxf(m[i], mr);
+      corr[i] = ex2(m[i] - m_new);
+      m[i] = m_new;
+      float ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < MK; ++j) {
+        sc[i][j] = ex2(sc[i][j] - m_new);
+        ps[j & 1] += sc[i][j];
+      }
+      l[i] = l[i] * corr[i] + (ps[0] + ps[1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MQ; ++i)
+#pragma unroll
+      for (int j = 0; j < MK; ++j)
+        sts32(px + (4 * i * PST + kg + 8 * j) * 4, sc[i][j]);
+#pragma unroll
+    for (int i = 0; i < MQ; ++i)
+#pragma unroll
+      for (int t = 0; t < NB; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][t][e] *= corr[i];
+    __syncwarp();  // the warp's P is written
+
+    // O += P V: key by key, p from the warp's P, V's chunk kg of each box
+    const int sv = wait_tile(2 * it + 1);
+    const uint32_t vb = vx0 + sv * C::TILE_BYTES;
+#pragma unroll 1
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      float4 pf[MQ][2];
+#pragma unroll
+      for (int i = 0; i < MQ; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          pf[i][hh] = lds128(px + (4 * i * PST + 8 * kk + 4 * hh) * 4);
+      const uint32_t vk = vb + kk * 8 * ROW_BYTES;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const uint32_t va = (vk ^ (r << 4)) + r * ROW_BYTES;
+        float4 vf[NB];
+#pragma unroll
+        for (int t = 0; t < NB; ++t) vf[t] = lds128(va + t * BK * ROW_BYTES);
+#pragma unroll
+        for (int i = 0; i < MQ; ++i) {
+          const float p = lane_of(pf[i][r >> 2], r & 3);
+#pragma unroll
+          for (int t = 0; t < NB; ++t) {
+            acc[i][t][0] = fmaf(p, vf[t].x, acc[i][t][0]);
+            acc[i][t][1] = fmaf(p, vf[t].y, acc[i][t][1]);
+            acc[i][t][2] = fmaf(p, vf[t].z, acc[i][t][2]);
+            acc[i][t][3] = fmaf(p, vf[t].w, acc[i][t][3]);
+          }
+        }
+      }
+    }
+    release(2 * it + 1);  // also orders this tile's P reads before the
+                          // next tile's writes
+  }
+  for (int u = 2 * i_hi; u < 2 * n; ++u) {
+    wait_tile(u);
+    release(u);
+  }
+
+  if (row0 < S) {
+#pragma unroll
+    for (int i = 0; i < MQ; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      li += __shfl_xor_sync(0xffffffffu, li, 4);
+      const int row = row0 + qg + 4 * i;
+      if (row >= S) continue;
+      const float den = fmaxf(li, 1e-30f);
+      float* orow =
+          o + ((static_cast<long long>(b) * S + row) * H + h) * HD + 4 * kg;
+#pragma unroll
+      for (int t = 0; t < NB; ++t)
+        *reinterpret_cast<float4*>(orow + 32 * t) =
+            make_float4(acc[i][t][0] / den, acc[i][t][1] / den,
+                        acc[i][t][2] / den, acc[i][t][3] / den);
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int Tn, int H, int KV, const long long* st, float sl2, int causal,
+           int window, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const int nq = (S + C::BQ - 1) / C::BQ;
+  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!make_map(&qm, F32, q, B, S, H, HD, st[0], st[1], st[2], C::BQ) ||
+      !make_map(&km, F32, k, B, Tn, KV, HD, st[3], st[4], st[5], C::BK) ||
+      !make_map(&vm, F32, v, B, Tn, KV, HD, st[6], st[7], st[8], C::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // heads fastest: every head's heaviest query tile launches first
+  const dim3 grid(H, nq, B);
+  flash_fma_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<float*>(o), S, Tn, H, KV, sl2, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fp32
+
 bool bad_shape(int B, int S, int T, int H, int KV) {
   return B <= 0 || S <= 0 || T < S || H <= 0 || KV <= 0 || H % KV != 0 ||
          B > 65535 || H > 65535;
@@ -691,7 +871,9 @@ bool bad_shape(int B, int S, int T, int H, int KV) {
 // q's, k's, v's (batch, sequence, head).  Returns cudaGetLastError()
 // after the launch.
 
-// float32 inputs, on the CUDA cores.
+// float32 inputs, on the CUDA cores.  q, k and v need 16-byte aligned
+// bases and strides that are multiples of 4 elements (TMA); a tensor map
+// the driver refuses returns cudaErrorInvalidValue.
 extern "C" int sears_flash_attn_fp32(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int T, int H, int KV, int hd,
@@ -699,8 +881,10 @@ extern "C" int sears_flash_attn_fp32(const void* q, const void* k,
                                      int causal, int window, void* stream) {
   if (bad_shape(B, S, T, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SEARS_FLASH_CASE(HD)                                                \
-  return fp32::launch<HD>(q, k, v, o, B, S, T, H, KV, strides, scale, causal, \
+  // exp(x) = exp2(x log2 e), the product rounded once
+  const float sl2 = static_cast<float>(scale * 1.4426950408889634);
+#define SEARS_FLASH_CASE(HD)                                                 \
+  return fp32::launch<HD>(q, k, v, o, B, S, T, H, KV, strides, sl2, causal, \
                           window, st)
   if (hd == 64) SEARS_FLASH_CASE(64);
   if (hd == 128) SEARS_FLASH_CASE(128);

@@ -3,15 +3,24 @@
 Port of the JAX reference's Pallas kernel (``repro/kernels/flash_attn.py``)
 in its model layout: q (B, S, H, hd), k and v (B, T, KV, hd), the queries
 being the last S of the T positions.  Two hand-written kernels in
-``csrc/flash_attn.cu``, chosen by dtype and nothing else:
+``csrc/flash_attn.cu``, chosen by dtype and nothing else, both fed by
+TMA, which reads each tensor where it lies through a tensor map: that
+needs a 16-byte aligned base and (batch, sequence, head) strides that are
+multiples of 16 bytes, and ``_check`` raises on anything else (nothing
+copies or reroutes such a tensor).
 
-- bf16 -> ``sears_flash_attn_bf16``: wgmma on the tensor cores, K/V tiles
-  brought by TMA.  TMA reads each tensor where it lies through a tensor
-  map, which needs a 16-byte aligned base and (batch, sequence, head)
-  strides that are multiples of 16 bytes; ``launch`` checks both.
-  Counted in ``KERNELS["flash_attn"]``.
-- fp32 -> ``sears_flash_attn_fp32``: the CUDA cores (TF32 would not hold
-  the 2e-5 tolerance).  Counted in ``KERNELS["flash_attn_fp32"]``.
+- bf16 -> ``sears_flash_attn_bf16``: wgmma on the tensor cores.  Counted
+  in ``KERNELS["flash_attn"]``.
+- fp32 -> ``sears_flash_attn_fp32``: FFMA on the CUDA cores, register
+  tiles of 8 x 8 scores a thread (at hd 64) read from 128-byte-swizzled
+  tiles without bank conflicts, K and V through one TMA ring in turn, a
+  warp-private p buffer.  It is bound by operations: 4 hd a live
+  query-key pair at the 67 TFLOP/s of the fp32 CUDA cores, the bytes
+  being about 1/80 of that.  The tensor cores do not hold the 2e-5
+  tolerance for every input: TF32 breaks it, and split TF32 (three
+  products of hi / lo halves) reads 2.4-4.2% of the gate on standard
+  normal inputs but 285% on inputs scaled x4, where fp32 FMAs read 3%.
+  Counted in ``KERNELS["flash_attn_fp32"]``.
 
 A CPU tensor takes the plain version (``ref.flash_attention_ref``); a
 CUDA tensor launches the kernel of its dtype or raises.
@@ -58,16 +67,15 @@ def _check(q, k, v, out) -> None:
         if x.device != q.device or x.dtype != q.dtype or x.stride(-1) != 1:
             raise ValueError(f"flash_attn: {name} must be {q.dtype} on "
                              f"{q.device} with unit stride in head_dim")
-    if q.dtype == torch.bfloat16:
-        size = q.element_size()
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % TMA_ALIGN:
-                raise ValueError(f"flash_attn: {name}'s base is not "
-                                 f"{TMA_ALIGN}-byte aligned (TMA)")
-            if any(s * size % TMA_ALIGN for s in x.stride()[:3]):
-                raise ValueError(f"flash_attn: {name}'s strides "
-                                 f"{x.stride()[:3]} are not multiples of "
-                                 f"{TMA_ALIGN} bytes (TMA)")
+    size = q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"flash_attn: {name}'s base is not "
+                             f"{TMA_ALIGN}-byte aligned (TMA)")
+        if any(s * size % TMA_ALIGN for s in x.stride()[:3]):
+            raise ValueError(f"flash_attn: {name}'s strides "
+                             f"{x.stride()[:3]} are not multiples of "
+                             f"{TMA_ALIGN} bytes (TMA)")
 
 
 def dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -112,8 +112,9 @@ def _qkvo(dtype, B=1, S=64, T=96, H=4, KV=2, hd=64):
     (torch.float32, "sears_flash_attn_fp32", "flash_attn_fp32"),
 ])
 def test_dtype_routes_to_its_own_kernel(monkeypatch, dtype, entry, counter):
-    """bf16 reaches the tensor-core entry point, fp32 the CUDA-core one,
-    each ticking its own counter; nothing else is called."""
+    """bf16 reaches the tensor-core entry point, fp32 the CUDA-core one
+    (FFMA fed by the same TMA ring), each ticking its own counter; nothing
+    else is called."""
     rec = _Recorder()
     monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
     q, k, v, out = _qkvo(dtype)
@@ -143,12 +144,17 @@ def _padded_heads(x):
     return torch.zeros((B, L, Hh, hd + 1), dtype=x.dtype)[..., :hd]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 @pytest.mark.parametrize("fault", ["base", "strides"])
-def test_bf16_rejects_what_tma_cannot_read(monkeypatch, which, fault):
+def test_kernels_reject_what_tma_cannot_read(monkeypatch, dtype, which,
+                                             fault):
+    """Both kernels read q, k and v through TMA tensor maps: a base off
+    16 bytes or a stride that is not a multiple of 16 bytes raises before
+    any launch, in either dtype."""
     rec = _Recorder()
     monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
-    t = dict(zip("qkvo", _qkvo(torch.bfloat16)))
+    t = dict(zip("qkvo", _qkvo(dtype)))
     t[which] = (_misaligned_base if fault == "base" else _padded_heads)(
         t[which])
     match = "aligned" if fault == "base" else "multiples of 16 bytes"
@@ -159,15 +165,16 @@ def test_bf16_rejects_what_tma_cannot_read(monkeypatch, which, fault):
     assert rec.calls == [] and KERNELS == before
 
 
-def test_fp32_takes_strides_tma_would_refuse(monkeypatch):
-    """The alignment rule is the TMA path's: the CUDA-core kernel reads
-    elements through any strides."""
+def test_fp32_long_shape_layout_passes_the_tma_rule(monkeypatch):
+    """Contiguous fp32 q, k, v in the long shape's layout (32 query and 8
+    KV heads) meet TMA's rule at every head dim and reach the kernel."""
     rec = _Recorder()
     monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
-    q, k, v, out = _qkvo(torch.float32)
-    flash_attn.dispatch(q, _padded_heads(k), v, out, scale=0.125,
-                        causal=True, window=0, stream=0)
-    assert [name for name, _ in rec.calls] == ["sears_flash_attn_fp32"]
+    for hd in flash_attn.HEAD_DIMS:
+        q, k, v, out = _qkvo(torch.float32, S=128, T=128, H=32, KV=8, hd=hd)
+        flash_attn.dispatch(q, k, v, out, scale=hd ** -0.5, causal=True,
+                            window=0, stream=0)
+    assert [name for name, _ in rec.calls] == ["sears_flash_attn_fp32"] * 3
 
 
 @pytest.mark.parametrize("hd", [32, 96, 512])
