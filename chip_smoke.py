@@ -81,13 +81,19 @@ through the entry points a user calls, on the card:
    prompt) and k, v (the serve prefill's cache); a long shape (B=1,
    S=T=8192, 32 query and 8 KV heads, hd 64, causal: the model's
    attention takes its blockwise branch there); small shapes with a
-   window, without causal, at hd 128 and at hd 256.  In bf16 every
+   window, without causal, at hd 128 and at hd 256; the reference's own
+   hd-32 shapes (``HD_SHAPES``: causal, unaligned, more keys than
+   queries, window 128, non-causal), a head dim between the kernels'
+   instances (hd 80, run on the hd-96 instance), and the long shape's
+   layout at hd 32.  In bf16 every
    shape runs on the seeds of ``FLASH_SEEDS`` and is held to its plain
    version element by element within ``FLASH_BF16_C`` * 2^-8 * |plain|
    + ``FLASH_BF16_A`` (the line prints the readings the constants come
-   from); at layer 0's and the long shape a control, the plain version
-   with the keys shifted by one slot, must read above that gate.  fp32
-   copies of every shape, hd 256 included, are held within 2e-5; both
+   from); at layer 0's, the long shape and every shape of hd 32, 80 and
+   96 a control, the plain version with the keys and values shifted by
+   one slot (the keys alone where nothing is masked), must read above
+   that gate (2e-5 in fp32).  fp32 copies of every shape but gemma3-1b's
+   and internlm2-20b's layers are held within 2e-5; both
    dtypes are held against ``layers.attention`` within 2e-2 (bf16) or 2e-5
    (fp32), the tolerances of ``tests/test_flash_attn.py``.  Then K6 is
    timed at the long shape in bf16 and fp32 and at layer 0's shape (per
@@ -98,11 +104,16 @@ through the entry points a user calls, on the card:
    attention at the long shape; the rows give TFLOP/s, the share of the
    bound and ``ptxas -v``'s registers and spills for each head dim.
    In bf16 K6 is also held and timed (``device_ms`` beside SDPA's) at
-   the attention shapes of two more configs' layers, at the serve batch
+   the attention shapes of three more configs' layers, at the serve batch
    and prompt: gemma3-1b's (16 stored query heads, one KV head, head dim
-   256, window 512) and internlm2-20b's (48:8 heads, head dim 128).  In
-   fp32 it is timed the same way at layer 0's shape and at hd 128 and
-   256, so the fp32 row shows each head dim's instance.
+   256, window 512), internlm2-20b's (48:8 heads, head dim 128) and
+   phi-3-vision's (32:32 heads, head dim 96, over the prompt and its 576
+   patches), and at hd 32's long shape.  In fp32 it is timed the same way
+   at layer 0's shape, at hd 128 and 256, at phi-3-vision's layer and at
+   hd 32's long shape, so the fp32 row shows each head dim's instance.
+   Each timed shape carries its bound and the bound's term (bytes, the
+   products, or the softmax's exponent at ``MUFU_PER_SM_CLOCK``: the
+   larger at bf16's hd 32).
 
 14. ``train``: llama3.2-1b at full width, cut to 2 of its 16 layers
    (``TRAIN_LAYERS``), trained through ``Trainer(mesh=default_mesh())``
@@ -252,6 +263,8 @@ through the entry points a user calls, on the card:
    with each cell's resident GB per chip, roofline terms and trace
    seconds; every cell must trace one rank's sharded step, with its
    collective term.
+22. ``total``: the script's seconds from its start, the build included
+   (the ``env`` line gives the build's own).
 
 K1-K5 must equal their plain versions exactly; K6 sums floats in
 another order than its plain version, so it is held to its gate.
@@ -319,9 +332,26 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # c, the largest |got - plain| / (2^-8 |plain|) where |plain| >= it.
 FLASH_SEEDS = (13, 14)
 # bf16 shapes of more configs' attention layers, at the serve batch and
-# prompt: (name, stored query heads, KV heads, head dim, window)
-LAYER_SHAPES = (("gemma3_layer", 16, 1, 256, 512),
-                ("internlm2_layer", 48, 8, 128, 0))
+# prompt: (name, stored query heads, KV heads, head dim, window, positions
+# after the prompt: phi-3-vision's 576 patches)
+LAYER_SHAPES = (("gemma3_layer", 16, 1, 256, 512, 0),
+                ("internlm2_layer", 48, 8, 128, 0, 0),
+                ("phi3_vision_layer", 32, 32, 96, 0, 576))
+# K6's shapes at the head dims the reference's own tests run (hd 32,
+# tests/test_flash_attn.py) and one hd between the kernels' instances:
+# (name, B, S, T, H, KV, hd, causal, window), in both dtypes
+HD_SHAPES = (("hd32", 1, 256, 256, 2, 2, 32, True, 0),
+             ("hd32_unaligned", 1, 300, 300, 2, 1, 32, True, 0),
+             ("hd32_more_kv", 1, 256, 768, 4, 4, 32, True, 0),
+             ("hd32_window", 1, 512, 512, 2, 2, 32, True, 128),
+             ("hd32_non_causal", 1, 256, 256, 2, 2, 32, False, 0),
+             ("hd80_routed", 1, 300, 300, 4, 2, 80, True, 0))
+# The softmax's exponent: an SM's MUFU units issue 16 ex2 a clock, one a
+# live query-key pair (K6's third bound term, beside bytes and products)
+MUFU_PER_SM_CLOCK = 16
+# What the K6 rows give for each timed shape (as ``<key>_by_shape``)
+BY_SHAPE_KEYS = ("ms", "device_ms", "plain_ms", "library_ms",
+                 "library_device_ms", "bound_ms", "bound_term")
 FLASH_GATE_SPLIT = 2.0 ** -4
 FLASH_BF16_C = 9.0
 FLASH_BF16_A = 3e-3
@@ -2150,25 +2180,37 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
-def flash_bound(q, k, v, causal: bool, window: int) -> float:
-    """K6's bound in ms: each input read once and the output written once
-    at HBM's rate, or 4 hd operations a live pair at the peak of q's dtype
-    (bf16: the tensor cores; fp32: the CUDA cores), whichever is larger."""
+def exp_peak(device) -> float:
+    """ex2 a second: MUFU_PER_SM_CLOCK x SMs x the maximum SM clock
+    (``int_peak``'s; the data sheet's without a card)."""
+    p = int_peak(device)
+    return MUFU_PER_SM_CLOCK * p["sms"] * p["max_sm_mhz"] * 1e6
+
+
+def flash_terms(q, k, v, causal: bool, window: int,
+                exp_per_s: float) -> dict:
+    """K6's bound terms in ms: ``bytes``, each input read once and the
+    output written once at HBM's rate; ``products``, 4 hd operations a
+    live pair at the peak of q's dtype (bf16: the tensor cores; fp32: the
+    CUDA cores); ``exp``, one ex2 a live pair at ``exp_per_s``."""
     B, S, H, hd = q.shape
     T = k.shape[1]
     size = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * size
-    ops_n = 4.0 * B * H * hd * live_pairs(S, T, causal, window)
+    pairs = float(B * H * live_pairs(S, T, causal, window))
     peak = PEAK_BF16_TC_PER_S if size == 2 else PEAK_OPS_PER_S
-    return max(nbytes / PEAK_BYTES_PER_S, ops_n / peak) * 1e3
+    return {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "products": 4.0 * hd * pairs / peak * 1e3,
+            "exp": pairs / exp_per_s * 1e3}
 
 
 def flash_phase(sizes: Sizes, device, layer0, reps: int
                 ) -> tuple[dict, list[dict]]:
     """K6 against its plain version and the model's attention at every
     shape, the bf16 kernel under the output-scaled gate, the fp32 kernel
-    at 2e-5; timed at the long shape (bf16 and fp32) and at layer 0's.
-    Returns the line and the K6 rows (bf16, fp32)."""
+    at 2e-5; timed at the long shape (bf16 and fp32), at layer 0's, and
+    at the other configs' layers and hd 32's long shape.  Returns the
+    line and the K6 rows (bf16, fp32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2180,6 +2222,7 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
     cuda = device.type == "cuda"
+    exp_per_s = exp_peak(device)
 
     def rand(rng, B, S, T, H, KV, hd, dtype):
         return tuple(torch.from_numpy(rng.standard_normal(
@@ -2208,24 +2251,46 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
                   for nm, x, c, w in small]
         hd256 = rand(rng, 2, 256, 768, 8, 1, 256, bf16)
         cases.append(("hd256", hd256, True, 0, seed))
-        # two more configs' attention at the serve batch and prompt
-        layers = {name: (rand(rng, Bs, Ps, Ps, H, KV, hd, bf16), window)
-                  for name, H, KV, hd, window in LAYER_SHAPES}
+        # more configs' attention at the serve batch and prompt
+        layers = {name: (rand(rng, Bs, Ps + extra, Ps + extra, H, KV, hd,
+                              bf16), window)
+                  for name, H, KV, hd, window, extra in LAYER_SHAPES}
         cases += [(name, qkv, True, window, seed)
                   for name, (qkv, window) in layers.items()]
+        # the reference's hd-32 shapes, a routed hd, hd 32 at the long
+        # shape's layout
+        hds = [(nm, rand(rng, B, S, T, H, KV, hd, f32), c, w)
+               for nm, B, S, T, H, KV, hd, c, w in HD_SHAPES]
+        long32 = rand(rng, 1, Ls, Ls, 32, 8, 32, bf16)
+        cases += [(f"{nm}_bf16", cast(x, bf16), c, w, seed)
+                  for nm, x, c, w in hds]
+        cases.append(("long_hd32", long32, True, 0, seed))
         if seed == FLASH_SEEDS[0]:
             layers0 = layers
-            long0 = long
+            long0, long32_0 = long, long32
             fp32_cases.append(("long_fp32", cast(long, f32), True, 0, seed))
             fp32_cases += [(nm, x, c, w, seed) for nm, x, c, w in small]
             fp32_cases.append(("hd256_fp32", cast(hd256, f32), True, 0,
                                seed))
+            fp32_cases += [(nm, x, c, w, seed) for nm, x, c, w in hds]
+            fp32_cases.append(("phi3_vision_layer_fp32", cast(
+                layers["phi3_vision_layer"][0], f32), True, 0, seed))
+            fp32_cases.append(("long_hd32_fp32", cast(long32, f32), True,
+                               0, seed))
     # the fp32 kernel's other head dims, timed: by-shape key -> case
     fp32_named = {c[0]: c[1] for c in fp32_cases}
     fp32_timed = {"serve_layer0_fp32": fp32_named["serve_layer0_fp32"],
                   "hd128": fp32_named["hd128"],
-                  "hd256": fp32_named["hd256_fp32"]}
+                  "hd256": fp32_named["hd256_fp32"],
+                  "phi3_vision_layer_fp32":
+                      fp32_named["phi3_vision_layer_fp32"],
+                  "long_hd32_fp32": fp32_named["long_hd32_fp32"]}
     cases += fp32_cases
+    # the shifted-mask control runs at these shapes (both dtypes)
+    controlled = {"serve_layer0", "long", "phi3_vision_layer",
+                  "phi3_vision_layer_fp32", "long_hd32", "long_hd32_fp32"}
+    controlled |= {f"{nm}_bf16" for nm, *_ in HD_SHAPES}
+    controlled |= {nm for nm, *_ in HD_SHAPES}
 
     reset_kernels()
     shapes, failed = [], []
@@ -2267,29 +2332,31 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
                                    .max()) if (~small).any() else 0.0)
             row["gate_use"] = float((d / gate).max())
             row["within_gate_plain"] = row["gate_use"] <= 1.0
-            if name in ("serve_layer0", "long"):
-                # the control: the causal mask one key off (keys shifted
-                # by one slot) must read above the gate
-                with torch.no_grad():
-                    off = ref.flash_attention_ref(
-                        q, k.roll(-1, 1), v.roll(-1, 1), causal=causal,
-                        window=window)
-                row["control_gate_use"] = float(
-                    ((off.float() - plain.float()).abs() / gate).max())
-                if row["control_gate_use"] <= 1.0:
-                    failed.append(f"{name}: the shifted-mask control "
-                                  f"passes the gate")
-                del off
             if not row["within_gate_plain"]:
                 failed.append(f"{name} (seed {seed}) vs plain")
         else:
             tol = FLASH_TOL[dtype]
-            row["gate_use"] = float(
-                (d / (tol + tol * plain.float().abs())).max())
-            row["within_tol_plain"] = bool(
-                (d <= tol + tol * plain.float().abs()).all())
+            gate = tol + tol * plain.float().abs()
+            row["gate_use"] = float((d / gate).max())
+            row["within_tol_plain"] = bool((d <= gate).all())
             if not row["within_tol_plain"]:
                 failed.append(f"{name} vs plain")
+        if name in controlled:
+            # the control: the mask one key off (keys and values shifted
+            # by one slot; without a mask or a window, where attention
+            # over every key is blind to their order, the keys alone: each
+            # key paired with the next value) must read above the gate
+            masked = causal or window > 0
+            with torch.no_grad():
+                off = ref.flash_attention_ref(
+                    q, k.roll(-1, 1), v.roll(-1, 1) if masked else v,
+                    causal=causal, window=window)
+            row["control_gate_use"] = float(
+                ((off.float() - plain.float()).abs() / gate).max())
+            if row["control_gate_use"] <= 1.0:
+                failed.append(f"{name}: the shifted-mask control passes "
+                              f"the gate")
+            del off
         # against the model's attention: the reference's tolerances
         tol = FLASH_TOL[dtype]
         dm = (got.float() - model.float()).abs()
@@ -2342,34 +2409,36 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
         fp32_ms = run(lambda: ops.flash_attention(q32, k32, v32), reps)
         fp32_plain_ms = run(lambda: ref.flash_attention_ref(q32, k32, v32),
                             3, 1)
-        serve_ms = run(lambda: ops.flash_attention(*layer0), reps)
         dev_ms = device_time([lambda: ops.flash_attention(q, k, v)], device)
         fp32_dev_ms = device_time([lambda: ops.flash_attention(q32, k32,
                                                                v32)], device)
-        serve_dev_ms = device_time([lambda: ops.flash_attention(*layer0)],
-                                   device)
-        lib = fp32_lib = serve_lib = (None, None)
+        lib = fp32_lib = (None, None)
         if cuda:
             lib = sdpa(q, k, v)
             fp32_lib = sdpa(q32, k32, v32)
-            serve_lib = sdpa(*layer0)
-        # the other configs' layers: the device alone, K6 beside SDPA
-        by_shape = {"serve_layer0": (serve_dev_ms, serve_lib[1],
-                                     flash_bound(*layer0, True, 0))}
+
+        # layer 0's shape, the other configs' layers and hd 32's long
+        # shape: per call and on the device alone, beside the plain
+        # version and SDPA; each with its bound and the bound's term
+        def timed(qkv, window: int = 0) -> dict:
+            def call():
+                return ops.flash_attention(*qkv, window=window)
+            terms = flash_terms(*qkv, True, window, exp_per_s)
+            term = max(terms, key=terms.get)
+            t_lib = sdpa(*qkv, window=window) if cuda else (None, None)
+            return {"ms": run(call, reps),
+                    "device_ms": device_time([call], device),
+                    "plain_ms": run(lambda: ref.flash_attention_ref(
+                        *qkv, window=window), 3, 1),
+                    "library_ms": t_lib[0], "library_device_ms": t_lib[1],
+                    "bound_ms": terms[term], "bound_term": term}
+        by_shape = {"serve_layer0": timed(layer0)}
         for name, (qkv, window) in layers0.items():
-            by_shape[name] = (
-                device_time([lambda qkv=qkv, window=window:
-                             ops.flash_attention(*qkv, window=window)],
-                            device),
-                sdpa(*qkv, window=window)[1] if cuda else None,
-                flash_bound(*qkv, True, window))
-        fp32_by_shape = {
-            name: (device_time([lambda qkv=qkv: ops.flash_attention(*qkv)],
-                               device),
-                   sdpa(*qkv)[1] if cuda else None,
-                   flash_bound(*qkv, True, 0))
-            for name, qkv in fp32_timed.items()}
-    del q32, k32, v32, layers0, fp32_named, fp32_timed
+            by_shape[name] = timed(qkv, window)
+        by_shape["long_hd32"] = timed(long32_0)
+        fp32_by_shape = {name: timed(qkv)
+                         for name, qkv in fp32_timed.items()}
+    del q32, k32, v32, layers0, long32_0, fp32_named, fp32_timed
     pairs = live_pairs(S, T, True, 0)
     ops_n = 4.0 * B * H * hd * pairs
     usage = ptxas_usage(_build.BUILD_INFO["log"])
@@ -2383,7 +2452,9 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
              fp32_dev_ms, fp32_plain_ms, fp32_lib)):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * dtype_bytes
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops_n / peak * 1e3
+        # products or the exponent, whichever is larger (the products at
+        # hd 64 in both dtypes)
+        t_ops = max(ops_n / peak, B * H * pairs / exp_per_s) * 1e3
         bms = max(t_bytes, t_ops)
         rows.append({
             "name": name, "route": "cuda",
@@ -2402,17 +2473,13 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
     rows[0].update(
         fp32_ms=fp32_ms, model_attention_ms=model_ms,
         tol={"c": FLASH_BF16_C, "a": FLASH_BF16_A},
-        device_ms_by_shape={k: v[0] for k, v in by_shape.items()},
-        library_device_ms_by_shape={k: v[1] for k, v in by_shape.items()},
-        bound_ms_by_shape={k: v[2] for k, v in by_shape.items()},
-        shape_by_name={name: [Bs, Ps, Ps, H, KV, hd, window] for
-                       name, H, KV, hd, window in LAYER_SHAPES})
-    rows[1].update(
-        tol=FLASH_TOL["float32"],
-        device_ms_by_shape={k: v[0] for k, v in fp32_by_shape.items()},
-        library_device_ms_by_shape={k: v[1] for k, v in
-                                    fp32_by_shape.items()},
-        bound_ms_by_shape={k: v[2] for k, v in fp32_by_shape.items()})
+        shape_by_name={name: [Bs, Ps + extra, Ps + extra, H, KV, hd, window]
+                       for name, H, KV, hd, window, extra in LAYER_SHAPES})
+    rows[1].update(tol=FLASH_TOL["float32"])
+    for row, timings in ((rows[0], by_shape), (rows[1], fp32_by_shape)):
+        for key in BY_SHAPE_KEYS:
+            row[f"{key}_by_shape"] = {name: t[key]
+                                      for name, t in timings.items()}
     line = {"phase": "flash", "launches": launches, "shapes": shapes,
             "bf16_gate": {"c": FLASH_BF16_C, "a": FLASH_BF16_A,
                           "split": FLASH_GATE_SPLIT},
@@ -2421,10 +2488,11 @@ def flash_phase(sizes: Sizes, device, layer0, reps: int
             "long_library_ms": lib[0], "long_library_device_ms": lib[1],
             "long_tflop_per_s": ops_n / ms / 1e9,
             "long_fp32_ms": fp32_ms, "long_fp32_library_ms": fp32_lib[0],
-            "serve_layer0_ms": serve_ms,
-            "serve_layer0_device_ms": serve_dev_ms,
-            "serve_layer0_library_ms": serve_lib[0],
-            "serve_layer0_library_device_ms": serve_lib[1],
+            "serve_layer0_ms": by_shape["serve_layer0"]["ms"],
+            "serve_layer0_device_ms": by_shape["serve_layer0"]["device_ms"],
+            "serve_layer0_library_ms": by_shape["serve_layer0"]["library_ms"],
+            "serve_layer0_library_device_ms":
+                by_shape["serve_layer0"]["library_device_ms"],
             "long_plain_ms": plain_ms, "long_model_attention_ms": model_ms,
             "ptxas": usage}
     return line, rows
@@ -3375,6 +3443,7 @@ def main(argv=None) -> int:
         rank, port, workdir = args.mesh_rank
         mesh_rank(int(rank), int(port), workdir)
         return 0
+    t0 = time.perf_counter()
     # cuBLAS reads this when it makes its first handle: the train phase's
     # deterministic steps need it (torch refuses them without it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3396,6 +3465,7 @@ def main(argv=None) -> int:
         import torch.distributed as dist
         if dist.is_initialized():
             dist.destroy_process_group()
+    emit({"phase": "total", "seconds": time.perf_counter() - t0})
     # the main path's kernel launch counts count toward 'launches'; the
     # comparison launches above them do not (main_path read them first)
     emit({"kernels": [{k: e[k] for k in (
@@ -3403,7 +3473,9 @@ def main(argv=None) -> int:
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "library_device_ms", "staged_ms", "staged_device_ms",
         "max_abs_err_by_shape", "device_ms_by_shape",
-        "library_device_ms_by_shape", "bound_ms_by_shape", "shape_by_name",
+        "library_device_ms_by_shape", "bound_ms_by_shape",
+        "ms_by_shape", "plain_ms_by_shape", "library_ms_by_shape",
+        "bound_term_by_shape", "shape_by_name",
         "staged_device_ms_by_shape", "longest_chain_rounds_by_shape",
         "longest_chain_rounds", "device_ms_all_8k",
         "device_ms_one_8k", "tflop_per_s",

@@ -10,7 +10,13 @@
 // (keys past T, then k <= q if causal, then k > q - window if window >
 // 0), masked scores at -1e30 so no row becomes NaN, p rounded to v's
 // dtype before P.V while l sums the unrounded p, and acc / max(l, 1e-30)
-// at the end.  hd is 64, 128 or 256.
+// at the end.  Any hd up to 256 whose rows are a multiple of 16 bytes (8
+// bf16 or 4 fp32 columns), as the reference takes any hd: each kernel is
+// instantiated at hd 32, 64, 96, 128 and 256, and another hd runs on the
+// smallest instance above it.  Its tensor maps carry the real hd, so TMA
+// fills the columns past it with zeros (scores and outputs unchanged),
+// and only the real hd columns are stored; a native hd stores with its
+// compile-time stride.
 //
 // What bounds it on an H100: operations.  A causal pass does 4 hd
 // operations per live query-key pair against reading q, k and v once and
@@ -20,21 +26,26 @@
 // the fp32 CUDA cores against 168 MB (0.050 ms, about 1/80 of it).
 // Beside the products, each score costs one exp on the MUFU units (16 a
 // clock an SM): at hd 64 that is one exp per 256 tensor-core operations,
-// about the products' own time, so the exps must run under the products.
+// about the products' own time, so the exps must run under the products;
+// at hd 32 the exps take twice the products' time and bound the bf16
+// kernel.
 //
 // bf16 (flash_wgmma_kernel): q k^T from bf16 inputs with fp32 sums is
 // exactly what the reference computes (it casts q and k to fp32; bf16 x
 // bf16 products are exact in fp32), so both products go to the tensor
 // cores.  One block of 1 + NCW warpgroups owns one (batch, query head,
-// 64 NCW queries); NCW is 3 at hd 64, 2 at hd 128 and 256 (Cfg).
+// 64 NCW queries); NCW is 3 at hd 32 and 64, 2 at hd 96, 128 and 256
+// (Cfg).
 // - warpgroup 0 gives up registers (setmaxnreg) and one of its threads
 //   issues TMA loads: Q once, then K and V tiles of BK keys into a ring
 //   of STAGES slots with full and empty mbarriers (K and V each have
 //   their own, so Q.K^T starts before V lands and K's slot frees before
 //   V's).  4-D tensor maps over (hd, heads, len, B) read one KV head's
 //   tile where it lies in the model layout; a 64-column box is one
-//   128-byte swizzle row, so hd 128 and 256 take 2 or 4 boxes a tile;
-//   rows past S or T come back as zeros.
+//   128-byte swizzle row, so hd 128 and 256 take 2 or 4 boxes a tile.  hd
+//   32 and 96 take 1 or 3 boxes of 32 columns, 64-byte swizzle rows
+//   (chunk c of row r at c ^ (r / 2 % 4)), read through descriptors of
+//   layout 2; rows past S or T come back as zeros.
 // - the other warpgroups take the registers and own 64 query rows each.
 //   S = Q K^T is a wgmma with both operands in shared memory (K-major);
 //   S's accumulators go through the online softmax in registers (row max
@@ -73,12 +84,15 @@
 //   fills the ring, and the last warp to release a slot (a shared count)
 //   refills it.  A 128-byte swizzle row holds 32 fp32 columns: a row
 //   takes hd / 32 boxes; rows past S or T come back as zeros.
-// - NW = 8 warps own WQ = 4 MQ queries each, MQ = 512 / hd.  In
-//   Q.K^T a warp's lanes are 4 query groups x 8 key groups and a thread
-//   holds MQ x 8 scores (queries qg + 4i, keys kg + 8j); in P.V the same
-//   lanes are 4 query groups x 8 column groups and a thread holds MQ rows
-//   of its 16-byte chunk kg of every box: 64 accumulators at every hd.
-//   At hd 64 each 16-byte shared load feeds 16 FFMAs in both products.
+// - NW = 8 warps own WQ = 4 MQ queries each, MQ = 8 at hd 32 and 64, 4
+//   at hd 96 and 128, 2 at hd 256.  In Q.K^T a warp's lanes are 4 query
+//   groups x 8 key groups and a thread holds MQ x 8 scores (queries qg +
+//   4i, keys kg + 8j); in P.V the same lanes are 4 query groups x 8
+//   column groups and a thread holds MQ rows of its 16-byte chunk kg of
+//   every box: MQ hd / 8 accumulators (64 at hd 64, 128 and 256; 32 at
+//   hd 32 and 48 at hd 96, where 16 or 6 query rows would cost 128
+//   score registers or a fraction).  At hd 64 each 16-byte shared load
+//   feeds 16 FFMAs in both products.
 // - the 128-byte swizzle puts chunk c of a box's row r at c ^ (r % 8).  The
 //   8 key rows a warp reads at once (and the 8 chunks of one V row) cover
 //   the 8 phases, and the 4 query rows are broadcast to 8 lanes each, so
@@ -142,12 +156,12 @@ EncodeTiled encode_tiled() {
 
 // A 4-D map over a (B, len, heads, hd) tensor of `type` (bf16 or fp32)
 // read through its (batch, sequence, head) strides in elements: dims (hd,
-// heads, len, B), boxes of one 128-byte swizzle row of columns (64 bf16
-// or 32 fp32) x 1 head x `rows` rows x 1 batch; rows past len read as
-// zeros.
+// heads, len, B), boxes of one swizzle row of `row_bytes` (128: 64 bf16 or
+// 32 fp32 columns; 64: 32 bf16 columns) x 1 head x `rows` rows x 1 batch;
+// rows past len and columns past hd read as zeros.
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
               int B, int len, int heads, int hd, long long sb, long long ss,
-              long long sh, int rows) {
+              long long sh, int rows, int row_bytes) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
@@ -158,12 +172,14 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * size,
                                  static_cast<cuuint64_t>(ss) * size,
                                  static_cast<cuuint64_t>(sb) * size};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / size), 1,
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(row_bytes / size), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -171,27 +187,34 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
 // bf16: warp-specialised wgmma kernel fed by a TMA ring.
 namespace tc {
 
-using sears::sm90::desc_sw128;
+using sears::sm90::desc_sw;
 using sears::sm90::smem_u32;
 namespace sm = sears::sm90;
 
-constexpr int ROW_BYTES = 128;   // one 64-column bf16 swizzle row
 constexpr float NEG_INF = -1e30f;
 
 // NCW consumer warpgroups of 64 query rows each, after one producer
 // warpgroup; tiles of BK keys in a ring of STAGES slots.  Three consumer
-// groups at hd 64 (more warps to hide the softmax's latency); two at hd
-// 128 and 256, where the accumulators need the registers.
+// groups at hd 32 and 64 (more warps to hide the softmax's latency); two
+// at hd 96, 128 and 256, where the accumulators need the registers (three
+// at hd 96 spill 144 bytes a thread and ptxas serialises their wgmma,
+// C7512).  A
+// row of a tile is NB boxes of BW columns, each a swizzle row of ROW
+// bytes: 64 columns (128 bytes) where hd is a multiple of 64, else 32
+// (64 bytes).
 template <int HD>
 struct Cfg {
-  static constexpr int NCW = HD == 64 ? 3 : 2;
-  static constexpr int NB = HD / 64;                  // 64-column boxes a row
+  static constexpr int NCW = HD <= 64 ? 3 : 2;
+  static constexpr int BW = HD % 64 == 0 ? 64 : 32;   // columns a box
+  static constexpr int ROW = 2 * BW;                  // bytes a box row
+  static constexpr int SBO = 8 * ROW;                 // a swizzle atom
+  static constexpr int NB = HD / BW;                  // boxes a row
   static constexpr int BQ = 64 * NCW;                 // queries a block
   static constexpr int THREADS = 128 * (NCW + 1);
   static constexpr int BK = HD == 256 ? 64 : 128;     // keys a tile
   static constexpr int STAGES = HD == 256 ? 2 : 3;
-  static constexpr int Q_BYTES = NCW * NB * 64 * ROW_BYTES;
-  static constexpr int KV_BYTES = NB * BK * ROW_BYTES;  // one K or V tile
+  static constexpr int Q_BYTES = NCW * NB * 64 * ROW;
+  static constexpr int KV_BYTES = NB * BK * ROW;      // one K or V tile
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + 8 * (4 * STAGES + 1) + 1024;
   // registers a thread after setmaxnreg: producer, consumers
@@ -205,16 +228,18 @@ struct Cfg {
 template <int HD>
 struct Consumer {
   using C = Cfg<HD>;
-  static constexpr int BK = C::BK;
-  static constexpr int NS = BK / 8;  // n8 blocks of S
-  static constexpr int NO = HD / 8;  // n8 blocks of O
+  static constexpr int BK = C::BK, ROW = C::ROW;
+  static constexpr int KB = C::BW / 16;  // k16 steps a box
+  static constexpr int NS = BK / 8;      // n8 blocks of S
+  static constexpr int NO = HD / 8;      // n8 blocks of O
 
   float acc[HD / 2];
   float sc[BK / 2];
   uint32_t pa[BK / 16][4];  // p (bf16 pairs) as P.V's A fragments
   float m[2], l[2];         // per row: running max (units of q.k), sum
 
-  // issue S = Q K^T: A and B K-major in shared memory
+  // issue S = Q K^T: A and B K-major in shared memory; k16 step kk is
+  // 32 bytes into a row of box kk / KB
   __device__ __forceinline__ void issue_qk(uint32_t qa, uint32_t ka) {
     sm::fence_regs(sc);
     sm::wgmma_fence();
@@ -222,23 +247,23 @@ struct Consumer {
     for (int kk = 0; kk < HD / 16; ++kk)
       sm::wgmma_ss<BK>(
           sc,
-          desc_sw128(qa + (kk >> 2) * 64 * ROW_BYTES + (kk & 3) * 32, 16,
-                     1024),
-          desc_sw128(ka + (kk >> 2) * BK * ROW_BYTES + (kk & 3) * 32, 16,
-                     1024),
+          desc_sw<ROW>(qa + (kk / KB) * 64 * ROW + (kk % KB) * 32, 16,
+                       C::SBO),
+          desc_sw<ROW>(ka + (kk / KB) * BK * ROW + (kk % KB) * 32, 16,
+                       C::SBO),
           kk > 0);
     sm::wgmma_commit();
   }
 
-  // issue O += P V: P from registers, V read MN-major (transpose bit)
+  // issue O += P V: P from registers, V read MN-major (transpose bit),
+  // its boxes BK rows apart
   __device__ __forceinline__ void issue_pv(uint32_t va) {
     sm::fence_regs(acc);
     sm::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)
-      sm::wgmma_rs<HD>(
-          acc, pa[j],
-          desc_sw128(va + j * 16 * ROW_BYTES, BK * ROW_BYTES, 1024), 1);
+      sm::wgmma_rs<HD>(acc, pa[j],
+                       desc_sw<ROW>(va + j * 16 * ROW, BK * ROW, C::SBO), 1);
     sm::wgmma_commit();
   }
 
@@ -313,6 +338,30 @@ struct Consumer {
       pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
     }
   }
+
+  // O / l into rows of `od` columns (o's row stride): od is HD at a native
+  // hd, a constant here; else the real hd, a multiple of 8, and the n8
+  // blocks past it are not stored.
+  __device__ __forceinline__ void store(__nv_bfloat16* o, int b, int S,
+                                        int H, int h, int row0, int warp,
+                                        int g, int t, int od) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = row0 + warp * 16 + g + 8 * r;
+      if (row >= S) continue;
+      const float den = fmaxf(lr, 1e-30f);
+      __nv_bfloat16* orow =
+          o + ((static_cast<long long>(b) * S + row) * H + h) * od + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        if (8 * j < od)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
+              acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+    }
+  }
 };
 
 template <int HD>
@@ -321,10 +370,10 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        __nv_bfloat16* __restrict__ o, int S, int Tn, int H,
-                       int KV, float sl2, int causal, int window) {
+                       int KV, int hd, float sl2, int causal, int window) {
   using C = Cfg<HD>;
   constexpr int NCW = C::NCW, NB = C::NB, BK = C::BK, ST = C::STAGES;
-  constexpr int BQ = C::BQ;
+  constexpr int BQ = C::BQ, ROW = C::ROW, BW = C::BW;
   extern __shared__ unsigned char smem_raw[];
   // swizzled tiles start on 1024-byte boundaries of the shared window
   unsigned char* base =
@@ -377,21 +426,21 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
       sm::mbar_expect_tx(q_full, C::Q_BYTES);
       for (int w = 0; w < NCW; ++w)
         for (int nb = 0; nb < NB; ++nb)
-          sm::tma_load_4d(sQ + (w * NB + nb) * 64 * ROW_BYTES, &qmap, q_full,
-                          nb * 64, h, q0 + 64 * w, b);
+          sm::tma_load_4d(sQ + (w * NB + nb) * 64 * ROW, &qmap, q_full,
+                          nb * BW, h, q0 + 64 * w, b);
       for (int i = 0; i < n; ++i) {
         const int s = i % ST, par = ((i / ST) & 1) ^ 1;
         const int k0 = (kt_lo + i) * BK;
         sm::mbar_wait(&empty_k[s], par);
         sm::mbar_expect_tx(&full_k[s], C::KV_BYTES);
         for (int nb = 0; nb < NB; ++nb)
-          sm::tma_load_4d(sK + s * C::KV_BYTES + nb * BK * ROW_BYTES, &kmap,
-                          &full_k[s], nb * 64, kvh, k0, b);
+          sm::tma_load_4d(sK + s * C::KV_BYTES + nb * BK * ROW, &kmap,
+                          &full_k[s], nb * BW, kvh, k0, b);
         sm::mbar_wait(&empty_v[s], par);
         sm::mbar_expect_tx(&full_v[s], C::KV_BYTES);
         for (int nb = 0; nb < NB; ++nb)
-          sm::tma_load_4d(sV + s * C::KV_BYTES + nb * BK * ROW_BYTES, &vmap,
-                          &full_v[s], nb * 64, kvh, k0, b);
+          sm::tma_load_4d(sV + s * C::KV_BYTES + nb * BK * ROW, &vmap,
+                          &full_v[s], nb * BW, kvh, k0, b);
       }
     }
   } else {
@@ -410,7 +459,7 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
     const int wg_first = q_offset + row0;
     const int wg_last = q_offset + min(row0 + 64, S) - 1;
     const int qp0 = wg_first + warp * 16 + g;  // this thread's first row
-    const uint32_t qa = smem_u32(sQ + cw * NB * 64 * ROW_BYTES);
+    const uint32_t qa = smem_u32(sQ + cw * NB * 64 * ROW);
     int i_lo = 0, i_hi = 0;  // live tiles [i_lo, i_hi) of the ring order
     if (row0 < S) {
       int lo, hi;
@@ -476,35 +525,27 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
     for (int i = i_hi; i < n; ++i) skip(i);
 
     if (row0 < S) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float l = st.l[r];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        const int row = row0 + warp * 16 + g + 8 * r;
-        if (row >= S) continue;
-        const float den = fmaxf(l, 1e-30f);
-        __nv_bfloat16* orow =
-            o + ((static_cast<long long>(b) * S + row) * H + h) * HD + 2 * t;
-#pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
-              st.acc[4 * j + 2 * r] / den, st.acc[4 * j + 2 * r + 1] / den);
-      }
+      if (hd == HD)
+        st.store(o, b, S, H, h, row0, warp, g, t, HD);
+      else
+        st.store(o, b, S, H, h, row0, warp, g, t, hd);
     }
   }
 }
 
+// hd <= HD: the real head dim, the tensor maps' extent
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tn, int H, int KV, const long long* st, float sl2, int causal,
-           int window, cudaStream_t stream) {
+           int Tn, int H, int KV, int hd, const long long* st, float sl2,
+           int causal, int window, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap qm, km, vm;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!make_map(&qm, BF16, q, B, S, H, HD, st[0], st[1], st[2], 64) ||
-      !make_map(&km, BF16, k, B, Tn, KV, HD, st[3], st[4], st[5], C::BK) ||
-      !make_map(&vm, BF16, v, B, Tn, KV, HD, st[6], st[7], st[8], C::BK))
+  if (!make_map(&qm, BF16, q, B, S, H, hd, st[0], st[1], st[2], 64, C::ROW) ||
+      !make_map(&km, BF16, k, B, Tn, KV, hd, st[3], st[4], st[5], C::BK,
+                C::ROW) ||
+      !make_map(&vm, BF16, v, B, Tn, KV, hd, st[6], st[7], st[8], C::BK,
+                C::ROW))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -512,8 +553,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
   flash_wgmma_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, Tn, H, KV, sl2, causal,
-      window);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, Tn, H, KV, hd, sl2,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -530,20 +571,23 @@ constexpr int ROW_BYTES = 128;  // one 32-column fp32 swizzle row
 constexpr float NEG_INF = -1e30f;
 
 // NW warps of WQ = 4 MQ queries each; K and V tiles of BK keys share one
-// ring of SLOTS slots.  MQ = 512 / hd keeps a thread's outputs at 64
-// registers (MQ rows x hd / 8 columns).  8 warps put 2 on each of the
-// SM's 4 schedulers, so a thread may hold 255 registers (hd 64 uses 254);
-// a ninth would put 3 on one and cap every thread at 168.
+// ring of SLOTS slots.  MQ x 8 scores and MQ rows x hd / 8 columns of
+// outputs a thread: MQ = 8 at hd 32 and 64, 4 at hd 96 and 128, 2 at hd
+// 256 (an even MQ keeps the Q rows' swizzle phases qg ^ 4 (i & 1)).  8
+// warps put 2 on each of the SM's 4 schedulers, so a thread may hold 255
+// registers (hd 64 uses 254); a ninth would put 3 on one and cap every
+// thread at 168.  The small tiles of hd 32 take a deeper ring.
 template <int HD>
 struct Cfg {
   static constexpr int NB = HD / 32;    // boxes a row; a thread's P.V chunks
-  static constexpr int MQ = 512 / HD;   // query rows a thread: 8, 4, 2
+  static constexpr int MQ = HD <= 64 ? 8 : HD <= 128 ? 4 : 2;  // query rows
   static constexpr int WQ = 4 * MQ;     // queries a warp
   static constexpr int NW = 8;          // warps
   static constexpr int BQ = NW * WQ;    // queries a block: 256, 128, 64
   static constexpr int BK = 64;         // keys a tile
   static constexpr int MK = BK / 8;     // keys a thread in Q.K^T
-  static constexpr int SLOTS = HD == 64 ? 4 : HD == 128 ? 3 : 2;
+  static constexpr int SLOTS = HD == 32 ? 8 : HD <= 96 ? 4 : HD == 128 ? 3
+                                                                       : 2;
   static constexpr int PST = BK + 8;    // floats a row of a warp's P
   static constexpr int THREADS = 32 * NW;
   static constexpr int Q_BYTES = NB * BQ * ROW_BYTES;
@@ -576,7 +620,7 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      float* __restrict__ o, int S, int Tn, int H, int KV,
-                     float sl2, int causal, int window) {
+                     int hd, float sl2, int causal, int window) {
   using C = Cfg<HD>;
   constexpr int NB = C::NB, MQ = C::MQ, MK = C::MK, WQ = C::WQ;
   constexpr int BQ = C::BQ, BK = C::BK, NS = C::SLOTS, PST = C::PST;
@@ -811,7 +855,10 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
     release(u);
   }
 
-  if (row0 < S) {
+  // O / l into rows of `od` columns (o's row stride): od is HD at a native
+  // hd, a constant here; else the real hd, a multiple of 4, and the chunks
+  // past it are not stored
+  auto store = [&](int od) {
 #pragma unroll
     for (int i = 0; i < MQ; ++i) {
       float li = l[i];
@@ -822,28 +869,37 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
       if (row >= S) continue;
       const float den = fmaxf(li, 1e-30f);
       float* orow =
-          o + ((static_cast<long long>(b) * S + row) * H + h) * HD + 4 * kg;
+          o + ((static_cast<long long>(b) * S + row) * H + h) * od + 4 * kg;
 #pragma unroll
       for (int t = 0; t < NB; ++t)
-        *reinterpret_cast<float4*>(orow + 32 * t) =
-            make_float4(acc[i][t][0] / den, acc[i][t][1] / den,
-                        acc[i][t][2] / den, acc[i][t][3] / den);
+        if (32 * t + 4 * kg < od)
+          *reinterpret_cast<float4*>(orow + 32 * t) =
+              make_float4(acc[i][t][0] / den, acc[i][t][1] / den,
+                          acc[i][t][2] / den, acc[i][t][3] / den);
     }
+  };
+  if (row0 < S) {
+    if (hd == HD)
+      store(HD);
+    else
+      store(hd);
   }
 }
 
+// hd <= HD: the real head dim, the tensor maps' extent
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tn, int H, int KV, const long long* st, float sl2, int causal,
-           int window, cudaStream_t stream) {
+           int Tn, int H, int KV, int hd, const long long* st, float sl2,
+           int causal, int window, cudaStream_t stream) {
   using C = Cfg<HD>;
   const int nq = (S + C::BQ - 1) / C::BQ;
   if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm;
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  if (!make_map(&qm, F32, q, B, S, H, HD, st[0], st[1], st[2], C::BQ) ||
-      !make_map(&km, F32, k, B, Tn, KV, HD, st[3], st[4], st[5], C::BK) ||
-      !make_map(&vm, F32, v, B, Tn, KV, HD, st[6], st[7], st[8], C::BK))
+  if (!make_map(&qm, F32, q, B, S, H, hd, st[0], st[1], st[2], C::BQ, 128) ||
+      !make_map(&km, F32, k, B, Tn, KV, hd, st[3], st[4], st[5], C::BK,
+                128) ||
+      !make_map(&vm, F32, v, B, Tn, KV, hd, st[6], st[7], st[8], C::BK, 128))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -852,24 +908,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   // heads fastest: every head's heaviest query tile launches first
   const dim3 grid(H, nq, B);
   flash_fma_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
-      qm, km, vm, static_cast<float*>(o), S, Tn, H, KV, sl2, causal, window);
+      qm, km, vm, static_cast<float*>(o), S, Tn, H, KV, hd, sl2, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace fp32
 
-bool bad_shape(int B, int S, int T, int H, int KV) {
+constexpr int MAX_HD = 256;  // wgmma's N, and shared memory
+
+// hd's row must be a multiple of 16 bytes (TMA), `size` bytes an element
+bool bad_shape(int B, int S, int T, int H, int KV, int hd, int size) {
   return B <= 0 || S <= 0 || T < S || H <= 0 || KV <= 0 || H % KV != 0 ||
-         B > 65535 || H > 65535;
+         B > 65535 || H > 65535 || hd <= 0 || hd > MAX_HD ||
+         hd * size % 16 != 0;
 }
 
 }  // namespace
 
 // q: (B, S, H, hd), k and v: (B, T, KV, hd), each with unit stride in hd
 // and the given (batch, sequence, head) strides in elements; o: (B, S, H,
-// hd) contiguous.  hd in {64, 128, 256}; S <= T; H % KV == 0.  strides:
-// q's, k's, v's (batch, sequence, head).  Returns cudaGetLastError()
-// after the launch.
+// hd) contiguous.  hd <= 256 with rows of a multiple of 16 bytes, run by
+// the instance at hd 32, 64, 96, 128 or 256, the smallest at or above it;
+// S <= T; H % KV == 0.  strides: q's, k's, v's (batch, sequence, head).
+// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue,
+// launching nothing, for a shape outside these.
 
 // float32 inputs, on the CUDA cores.  q, k and v need 16-byte aligned
 // bases and strides that are multiples of 4 elements (TMA); a tensor map
@@ -879,18 +942,20 @@ extern "C" int sears_flash_attn_fp32(const void* q, const void* k,
                                      int T, int H, int KV, int hd,
                                      const long long* strides, float scale,
                                      int causal, int window, void* stream) {
-  if (bad_shape(B, S, T, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, S, T, H, KV, hd, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // exp(x) = exp2(x log2 e), the product rounded once
   const float sl2 = static_cast<float>(scale * 1.4426950408889634);
-#define SEARS_FLASH_CASE(HD)                                                 \
-  return fp32::launch<HD>(q, k, v, o, B, S, T, H, KV, strides, sl2, causal, \
-                          window, st)
-  if (hd == 64) SEARS_FLASH_CASE(64);
-  if (hd == 128) SEARS_FLASH_CASE(128);
-  if (hd == 256) SEARS_FLASH_CASE(256);
+#define SEARS_FLASH_CASE(HD)                                                \
+  return fp32::launch<HD>(q, k, v, o, B, S, T, H, KV, hd, strides, sl2,    \
+                          causal, window, st)
+  if (hd <= 32) SEARS_FLASH_CASE(32);
+  if (hd <= 64) SEARS_FLASH_CASE(64);
+  if (hd <= 96) SEARS_FLASH_CASE(96);
+  if (hd <= 128) SEARS_FLASH_CASE(128);
+  SEARS_FLASH_CASE(256);
 #undef SEARS_FLASH_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bfloat16 inputs, on the tensor cores.  q, k and v need 16-byte aligned
@@ -901,16 +966,18 @@ extern "C" int sears_flash_attn_bf16(const void* q, const void* k,
                                      int T, int H, int KV, int hd,
                                      const long long* strides, float scale,
                                      int causal, int window, void* stream) {
-  if (bad_shape(B, S, T, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, S, T, H, KV, hd, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
-#define SEARS_FLASH_CASE(HD)                                                  \
-  return tc::launch<HD>(q, k, v, o, B, S, T, H, KV, strides, sl2, causal, \
-                        window, st)
-  if (hd == 64) SEARS_FLASH_CASE(64);
-  if (hd == 128) SEARS_FLASH_CASE(128);
-  if (hd == 256) SEARS_FLASH_CASE(256);
+#define SEARS_FLASH_CASE(HD)                                              \
+  return tc::launch<HD>(q, k, v, o, B, S, T, H, KV, hd, strides, sl2,    \
+                        causal, window, st)
+  if (hd <= 32) SEARS_FLASH_CASE(32);
+  if (hd <= 64) SEARS_FLASH_CASE(64);
+  if (hd <= 96) SEARS_FLASH_CASE(96);
+  if (hd <= 128) SEARS_FLASH_CASE(128);
+  SEARS_FLASH_CASE(256);
 #undef SEARS_FLASH_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash attention:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma instructions at the shapes K6 issues.
+// wgmma instructions at the shapes K6 issues (wgmma_ss at N = 64 and 128,
+// wgmma_rs at N = 32, 64, 96, 128 and 256).
 //
 // wgmma_ss<N>: D (64 x N, fp32) += A (64 x 16, bf16, shared memory,
 // K-major) * B (16 x N, bf16, shared memory, K-major).  wgmma_rs<N>: the
@@ -86,14 +87,22 @@ static __device__ __forceinline__ void tma_load_4d(void* dst,
 
 // --------------------------------------------------------------- wgmma ---
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-static __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
-                                                      uint32_t lbo,
-                                                      uint32_t sbo) {
+// Shared-memory matrix descriptor of an operand swizzled in rows of ROW
+// bytes, as TMA's SWIZZLE_128B or SWIZZLE_64B writes it (16-byte chunk c
+// of row r at c ^ (r % 8) or c ^ (r / 2 % 4)): start address, leading and
+// stride byte offsets (16-byte units), layout 1 (128 B) or 2 (64 B).
+// K-major: rows of ROW bytes, SBO between 8-row groups, LBO unused.
+// MN-major: SBO between 8-row groups along K, LBO between the ROW-byte
+// column groups along M or N.
+template <int ROW>
+static __device__ __forceinline__ uint64_t desc_sw(uint32_t addr,
+                                                  uint32_t lbo,
+                                                  uint32_t sbo) {
+  static_assert(ROW == 128 || ROW == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t layout = ROW == 128 ? 1 : 2;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 
 static __device__ __forceinline__ void wgmma_fence() {
@@ -180,6 +189,21 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
                                               const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
@@ -195,6 +219,29 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

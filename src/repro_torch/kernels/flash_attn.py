@@ -9,14 +9,23 @@ needs a 16-byte aligned base and (batch, sequence, head) strides that are
 multiples of 16 bytes, and ``_check`` raises on anything else (nothing
 copies or reroutes such a tensor).
 
-- bf16 -> ``sears_flash_attn_bf16``: wgmma on the tensor cores.  Counted
-  in ``KERNELS["flash_attn"]``.
+Head dims: each kernel is instantiated at hd 32, 64, 96, 128 and 256;
+any other hd up to ``MAX_HEAD_DIM`` whose row is a multiple of 16 bytes
+(8 bf16 or 4 fp32 columns) runs on the smallest instance above it, its
+tensor maps filling the columns past hd with zeros, and only the real hd
+columns are stored.  The C entry point picks the instance from the hd
+it is given.  ``_check`` raises before any launch on hd > 256 (wgmma's N
+and the shared memory budget) and on a row that TMA cannot read.
+
+- bf16 -> ``sears_flash_attn_bf16``: wgmma on the tensor cores, its tiles
+  in 128-byte swizzle rows where hd is a multiple of 64, else 64-byte
+  ones.  Counted in ``KERNELS["flash_attn"]``.
 - fp32 -> ``sears_flash_attn_fp32``: FFMA on the CUDA cores, register
-  tiles of 8 x 8 scores a thread (at hd 64) read from 128-byte-swizzled
-  tiles without bank conflicts, K and V through one TMA ring in turn, a
-  warp-private p buffer.  It is bound by operations: 4 hd a live
-  query-key pair at the 67 TFLOP/s of the fp32 CUDA cores, the bytes
-  being about 1/80 of that.  The tensor cores do not hold the 2e-5
+  tiles of 8 x 8 scores a thread (at hd 32 and 64) read from
+  128-byte-swizzled tiles without bank conflicts, K and V through one TMA
+  ring in turn, a warp-private p buffer.  It is bound by operations: 4 hd
+  a live query-key pair at the 67 TFLOP/s of the fp32 CUDA cores, the
+  bytes being about 1/80 of that.  The tensor cores do not hold the 2e-5
   tolerance for every input: TF32 breaks it, and split TF32 (three
   products of hi / lo halves) reads 2.4-4.2% of the gate on standard
   normal inputs but 285% on inputs scaled x4, where fp32 FMAs read 3%.
@@ -36,7 +45,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launches import KERNELS
 
-HEAD_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = 256  # wgmma's largest N; the shared memory budget
 # dtype -> (C entry point, launch counter)
 ENTRY = {torch.bfloat16: ("sears_flash_attn_bf16", "flash_attn"),
          torch.float32: ("sears_flash_attn_fp32", "flash_attn_fp32")}
@@ -53,9 +62,13 @@ def _check(q, k, v, out) -> None:
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"flash_attn: head_dim {hd} not in {HEAD_DIMS} or "
-                         f"k {tuple(k.shape)} does not match q "
+    size = q.element_size()
+    if not 0 < hd <= MAX_HEAD_DIM or hd * size % TMA_ALIGN:
+        raise ValueError(f"flash_attn: head_dim {hd} is not in 1.."
+                         f"{MAX_HEAD_DIM} with rows of a multiple of "
+                         f"{TMA_ALIGN} bytes ({q.dtype})")
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attn: k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
     if KV == 0 or H % KV or not 0 < S <= T or B > 65535 or H > 65535:
         raise ValueError(f"flash_attn: needs H % KV == 0 and 0 < S <= T, "
@@ -67,7 +80,6 @@ def _check(q, k, v, out) -> None:
         if x.device != q.device or x.dtype != q.dtype or x.stride(-1) != 1:
             raise ValueError(f"flash_attn: {name} must be {q.dtype} on "
                              f"{q.device} with unit stride in head_dim")
-    size = q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % TMA_ALIGN:
             raise ValueError(f"flash_attn: {name}'s base is not "

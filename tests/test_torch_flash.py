@@ -37,6 +37,8 @@ def _inputs(B, S, T, H, KV, hd, seed=0):
     (1, 300, 300, 2, 1, 32, "float32", 0),    # unaligned seq (padding path)
     (1, 512, 512, 2, 2, 32, "float32", 128),  # sliding window
     (1, 256, 768, 4, 4, 32, "bfloat16", 0),   # more KV than Q, bf16
+    (1, 256, 256, 2, 1, 96, "float32", 0),    # phi-3-vision's head dim
+    (1, 300, 300, 4, 2, 80, "bfloat16", 0),   # a routed head dim
 ])
 def test_port_flash_matches_pallas_kernel(B, S, T, H, KV, hd, dtype, window):
     q, k, v = _inputs(B, S, T, H, KV, hd)
@@ -165,24 +167,44 @@ def test_kernels_reject_what_tma_cannot_read(monkeypatch, dtype, which,
     assert rec.calls == [] and KERNELS == before
 
 
-def test_fp32_long_shape_layout_passes_the_tma_rule(monkeypatch):
-    """Contiguous fp32 q, k, v in the long shape's layout (32 query and 8
-    KV heads) meet TMA's rule at every head dim and reach the kernel."""
+@pytest.mark.parametrize("dtype,entry", [
+    (torch.bfloat16, "sears_flash_attn_bf16"),
+    (torch.float32, "sears_flash_attn_fp32"),
+])
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128, 256])
+def test_fp32_long_shape_layout_passes_the_tma_rule(monkeypatch, hd, dtype,
+                                                     entry):
+    """Contiguous q, k, v in the long shape's layout (32 query and 8 KV
+    heads) meet TMA's rule at every head dim the kernels take, native (32,
+    64, 96, 128, 256) or routed (80), in either dtype, and reach their
+    dtype's entry point with the real head dim: the C side picks the
+    instance."""
     rec = _Recorder()
     monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
-    for hd in flash_attn.HEAD_DIMS:
-        q, k, v, out = _qkvo(torch.float32, S=128, T=128, H=32, KV=8, hd=hd)
-        flash_attn.dispatch(q, k, v, out, scale=hd ** -0.5, causal=True,
-                            window=0, stream=0)
-    assert [name for name, _ in rec.calls] == ["sears_flash_attn_fp32"] * 3
+    q, k, v, out = _qkvo(dtype, S=128, T=128, H=32, KV=8, hd=hd)
+    flash_attn.dispatch(q, k, v, out, scale=hd ** -0.5, causal=True,
+                        window=0, stream=0)
+    assert [name for name, _ in rec.calls] == [entry]
+    args = rec.calls[0][1]
+    assert args[4:10] == (1, 128, 128, 32, 8, hd)  # B, S, T, H, KV, hd
+    assert args[11] == pytest.approx(hd ** -0.5)
 
 
-@pytest.mark.parametrize("hd", [32, 96, 512])
-def test_head_dims_outside_the_kernels_raise(monkeypatch, hd):
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.bfloat16, 264),   # past wgmma's N = 256
+    (torch.bfloat16, 384),
+    (torch.float32, 512),
+    (torch.bfloat16, 36),    # a 72-byte row: not a multiple of 16 bytes
+    (torch.float32, 30),     # a 120-byte row
+])
+def test_head_dims_outside_the_kernels_raise(monkeypatch, dtype, hd):
+    """Past 256, or with a row TMA cannot read, a head dim raises before
+    any launch: nothing reroutes it to the plain version."""
     rec = _Recorder()
     monkeypatch.setattr(flash_attn._build, "library", lambda: rec)
-    q, k, v, out = _qkvo(torch.bfloat16, hd=hd)
+    q, k, v, out = _qkvo(dtype, hd=hd)
+    before = dict(KERNELS)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attn.dispatch(q, k, v, out, scale=0.125, causal=True,
                             window=0, stream=0)
-    assert rec.calls == []
+    assert rec.calls == [] and KERNELS == before

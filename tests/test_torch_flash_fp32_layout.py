@@ -32,15 +32,18 @@ class Cfg:
     """``fp32::Cfg<HD>`` of the source."""
 
     def __init__(self, hd: int):
-        self.HD, self.NB, self.MQ = hd, hd // 32, 512 // hd
+        self.HD, self.NB = hd, hd // 32
+        self.MQ = 8 if hd <= 64 else 4 if hd <= 128 else 2
         self.WQ, self.NW, self.BK = 4 * self.MQ, 8, 64
         self.BQ, self.MK = self.NW * self.WQ, self.BK // 8
-        self.SLOTS = {64: 4, 128: 3, 256: 2}[hd]
+        self.SLOTS = {32: 8, 64: 4, 96: 4, 128: 3, 256: 2}[hd]
         self.PST = self.BK + 8
         self.Q_BYTES = self.NB * self.BQ * ROW
         self.TILE = self.NB * self.BK * ROW
         self.P_OFF = self.Q_BYTES + self.SLOTS * self.TILE
         self.END = self.P_OFF + self.NW * self.WQ * self.PST * 4
+        # the barriers and release counts, and the 1024-byte alignment
+        self.SMEM = self.END + 8 * (self.SLOTS + 1) + 4 * self.SLOTS + 1024
 
 
 class Smem:
@@ -73,7 +76,22 @@ class Smem:
         self.w[addr // 4] = x
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+SMEM_LIMIT = 232448  # bytes of shared memory an H100 block may use
+
+
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
+def test_fp32_kernel_fits_one_block_an_sm(hd):
+    """Every instance's ring, Q tile and p buffers fit a block's shared
+    memory, Q and every ring slot on 1024 bytes (the swizzle's period),
+    and an even MQ keeps the Q rows' phases at qg ^ 4 (i & 1)."""
+    C = Cfg(hd)
+    assert C.SMEM <= SMEM_LIMIT
+    assert C.Q_BYTES % 1024 == 0 and C.TILE % 1024 == 0
+    assert C.BQ * ROW % 1024 == 0 and C.BK * ROW % 1024 == 0
+    assert C.MQ % 2 == 0 and C.WQ % 8 == 0 and C.BQ <= 256  # a TMA box
+
+
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 def test_fp32_kernel_addresses_read_their_elements_conflict_free(hd):
     C = Cfg(hd)
     rng = np.random.default_rng(hd)

@@ -106,7 +106,7 @@ def flash(device, src: pathlib.Path) -> int:
                                      device=s.device).triu(1), -torch.inf)
         return torch.einsum("bhst,bthd->bshd", s.softmax(-1), v)
     scaled = []
-    for hd in (64, 128, 256):
+    for hd in (32, 64, 96, 128, 256):
         for x in (1.0, 2.0, 4.0):
             q, k, v = (torch.randn(shape, generator=g, device=device)
                        for shape in ((1, 512, 8, hd), (1, 512, 2, hd),
