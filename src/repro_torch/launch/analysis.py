@@ -6,8 +6,10 @@ parses the optimized post-SPMD HLO text (``analyze_hlo``) and weights
 every instruction by its enclosing loops' trip counts.  Torch has no such
 text: ``analyze_step`` runs the step once under a ``TorchDispatchMode``
 and counts every aten op as it runs.  An eager run unrolls every Python
-loop, so nothing needs weighting (``unknown_loops`` is always 0).  It
-counts, as the reference does:
+loop, so nothing needs weighting (``unknown_loops`` is always 0); a
+caller that knows a loop's iterations to be alike may run one of them
+under ``repeated(n)`` instead, as the dry run does for attention's
+tiles.  It counts, as the reference does:
 
   1. FLOPs of dots only: ``mm``, ``addmm``, ``bmm``, ``baddbmm`` and the
      fused attention ops where they appear, by
@@ -37,6 +39,7 @@ The collective term is ``None`` where the collective bytes are unknown.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -151,6 +154,7 @@ class _Counter(TorchDispatchMode):
         super().__init__()
         self.dots = _dot_formulas()
         self.stats = StepStats(0.0, 0.0, 0.0, {k: 0 for k in COLLECTIVES}, 0)
+        self.weight = 1  # each op counts this many times (``repeated``)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -161,19 +165,19 @@ class _Counter(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **kwargs)
         packet = func.overloadpacket
-        st = self.stats
+        st, w = self.stats, self.weight
         formula = self.dots.get(packet)
         if formula is not None:
-            st.flops += float(formula(*args, **kwargs, out_val=out))
+            st.flops += float(formula(*args, **kwargs, out_val=out)) * w
         ns = func.namespace
         name = packet.__name__
         kind = _COLLECTIVE_OPS.get((ns, name))
         if kind is not None:
             b = sum(_nbytes(t) for t in tree_flatten((args, kwargs))[0]
-                    if isinstance(t, torch.Tensor))
+                    if isinstance(t, torch.Tensor)) * w
             st.coll_bytes += b
             st.coll_by_kind[kind] += b
-            st.n_collectives += 1
+            st.n_collectives += w
             st.bytes_traffic += b
             return out
         if func.is_view or name in _NO_TRAFFIC or ns not in ("aten",
@@ -183,8 +187,25 @@ class _Counter(TorchDispatchMode):
         for t in tree_flatten((args, kwargs, out))[0]:
             if isinstance(t, torch.Tensor) and id(t) not in seen:
                 seen.add(id(t))
-                st.bytes_traffic += _nbytes(t)
+                st.bytes_traffic += _nbytes(t) * w
         return out
+
+
+_ACTIVE: list[_Counter] = []  # the counters of the running analyze_steps
+
+
+@contextlib.contextmanager
+def repeated(times: int):
+    """Count the ops run inside ``times`` times over: one iteration of a
+    loop whose iterations all run the same ops on the same shapes stands
+    for all of them.  Outside ``analyze_step`` it changes nothing."""
+    for c in _ACTIVE:
+        c.weight *= times
+    try:
+        yield
+    finally:
+        for c in _ACTIVE:
+            c.weight //= times
 
 
 def analyze_step(fn, *args, **kw) -> StepStats:
@@ -193,8 +214,12 @@ def analyze_step(fn, *args, **kw) -> StepStats:
     would: on real tensors it computes, on fake tensors it only
     propagates shapes."""
     counter = _Counter()
-    with counter:
-        fn(*args, **kw)
+    _ACTIVE.append(counter)
+    try:
+        with counter:
+            fn(*args, **kw)
+    finally:
+        _ACTIVE.remove(counter)
     return counter.stats
 
 

@@ -26,7 +26,11 @@ Per cell:
   collective term at 450 GB/s), with the redundant work of replicated
   ops counted on every chip; a train cell's microbatch body traced once
   and weighted by the microbatch count, as ``analyze_hlo`` weights a
-  while body by its trip count, and the update once.
+  while body by its trip count, and the update once; and the blockwise
+  attention's loops over blocks traced for one block each and weighted
+  by the blocks where no gradient is taken (``_one_block``: on fake
+  tensors every block runs the same ops on the same shapes), so a
+  32k-token serve cell traces as fast as a 4k one;
   ``flops_per_chip``, ``bytes_per_chip`` and ``coll_bytes_per_chip``
   are that rank's (on a mesh of one device, the plain step at the
   cell's global shapes, and these ``null``);
@@ -49,6 +53,7 @@ runs), which the reference's take one name each.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -63,7 +68,7 @@ from repro_torch.configs.base import SHAPES, get_config, runnable_cells
 from repro_torch.distributed.sharding import MeshRules
 from repro_torch.launch import analysis
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import api
+from repro_torch.models import api, layers
 from repro_torch.serve.step import build_decode_step, build_prefill_step
 from repro_torch.train import optimizer as opt
 from repro_torch.train.optimizer import AdamWConfig
@@ -200,7 +205,7 @@ def trace_step(cfg, shape, step, device: str = "cuda", mesh=None
     def specs(tree, i):  # a tree of Spec, local where the step shards
         return local_specs(tree, step.in_sh[i]) if sharded else tree
     t0 = time.perf_counter()
-    with FakeTensorMode():
+    with FakeTensorMode(), _one_tile_attention():
         params = _fake(specs(param_shapes, 0), device)
         if shape.kind == "train":
             nmb = step.microbatches
@@ -233,6 +238,29 @@ def trace_step(cfg, shape, step, device: str = "cuda", mesh=None
             stats = analysis.analyze_step(fn, params, cache, token,
                                           shape.seq_len - 1)
     return stats, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _one_tile_attention():
+    """``layers._blocks`` as ``_one_block`` while the dry run traces."""
+    blocks = layers._blocks
+    layers._blocks = _one_block
+    try:
+        yield
+    finally:
+        layers._blocks = blocks
+
+
+def _one_block(n: int):
+    """Block 0 alone, counted ``n`` times (``analysis.repeated``): on
+    fake tensors every block runs the same ops on the same shapes, and
+    nested loops multiply their weights.  Where a gradient is taken, every
+    block: the backward runs after the loop, outside ``repeated``."""
+    if torch.is_grad_enabled():
+        yield from range(n)
+        return
+    with analysis.repeated(n):
+        yield 0
 
 
 def _no_grad(fn):

@@ -35,6 +35,9 @@ ATTN_DIRECT_LIMIT = 4096 * 4096
 ATTN_BLOCK_Q = 1024
 ATTN_BLOCK_KV = 1024
 SSM_CHUNK = 64
+# the iterator of ``_attention_blockwise``'s loops over blocks; the dry
+# run swaps in one that runs a single block for all of them
+_blocks = range
 
 NEG_INF = -1e30
 
@@ -187,14 +190,14 @@ def _attention_blockwise(q, k, v, *, q_pos, kv_pos, window, causal, scale):
     kposp = F.pad(kv_pos, (0, nt * Tb - T), value=10 ** 9)
 
     out = torch.empty((B, nq * Qb, H, dv), dtype=v.dtype, device=dev)
-    for i in range(nq):
+    for i in _blocks(nq):
         qg = qp[:, i * Qb:(i + 1) * Qb].reshape(B, Qb, KV, G, dh).float()
         qpos_i = qposp[i * Qb:(i + 1) * Qb]
         m = torch.full((B, KV, G, Qb), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, KV, G, Qb), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, KV, G, Qb, dv), dtype=v.dtype, device=dev)
-        for j in range(nt):
+        for j in _blocks(nt):
             kj = kp[:, j * Tb:(j + 1) * Tb]
             vj = vp[:, j * Tb:(j + 1) * Tb]
             s = torch.einsum("bqkgh,btkh->bkgqt", qg, kj.float()) * scale

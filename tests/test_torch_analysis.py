@@ -15,6 +15,8 @@
   shardings (on ``AbstractMesh`` es; ``repro.launch.dryrun`` is imported
   with ``XLA_FLAGS`` put back, since its first line rewrites it);
 * ``lower_cell`` on whisper-tiny at each shape kind, on fake CPU tensors;
+* the dry run's one-block trace of blockwise attention counts what the
+  loops over every block count, with and without a gradient;
 * ``_rope_inv`` never hands a fake tensor to the next fake mode or to a
   real run.
 
@@ -326,6 +328,42 @@ def test_lower_cell_whisper_tiny(meshes, shape):
         cfg, dryrun.SHAPES[shape])
     assert res["resident_gb_per_chip"] == round(dryrun.build_cell(
         "whisper_tiny", shape, meshes[True])[0], 3)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 700),
+                                           (False, 0)])
+def test_one_tile_blockwise_counts_equal_the_loops(dtype, causal, window,
+                                                   grad):
+    """On fake tensors of 3 x 2 tiles (both lengths padded), the dry
+    run's one-block loops (``dryrun._one_tile_attention``) count the same
+    FLOPs and bytes as ``layers._attention_blockwise`` running every
+    tile, and give the same output shape and dtype.  Without a gradient
+    they run one block; with one, every block, and the backward that
+    ``torch.autograd.grad`` runs after the loops is counted in full."""
+    S, T = 2 * layers.ATTN_BLOCK_Q + 300, layers.ATTN_BLOCK_KV + 500
+    with FakeTensorMode(), torch.set_grad_enabled(grad):
+        q = torch.empty((2, S, 4, 16), dtype=dtype, requires_grad=grad)
+        k, v = (torch.empty((2, T, 2, 16), dtype=dtype, requires_grad=grad)
+                for _ in "kv")
+        kw = dict(q_pos=torch.arange(S) + (T - S), kv_pos=torch.arange(T),
+                  window=window, causal=causal, scale=0.25)
+        out = []
+
+        def step():
+            out.append(layers._attention_blockwise(q, k, v, **kw))
+            if grad:
+                torch.autograd.grad(out[-1].float().sum(), (q, k, v))
+
+        loop = analyze_step(step)
+        with dryrun._one_tile_attention():
+            blocks = list(layers._blocks(3))
+            tile = analyze_step(step)
+    assert blocks == ([0, 1, 2] if grad else [0])
+    assert loop.flops > 0 and loop.bytes_traffic > 0
+    assert loop == tile
+    assert (out[1].shape, out[1].dtype) == (out[0].shape, out[0].dtype)
 
 
 def test_dryrun_main_fails_a_cell_and_exits_1():

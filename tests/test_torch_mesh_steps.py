@@ -35,10 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
-import pathlib
 import pickle
-import subprocess
 import sys
 import textwrap
 
@@ -68,7 +65,8 @@ from repro_torch.train.step import TrainStepConfig, build_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig, default_mesh
 from repro_torch.tree import at, flatten_with_path, tree_map
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+from children import Children, failures
+
 FAMILIES = ("llama32_1b", "granite_moe_1b", "deepseek_v2_236b",
             "phi3_vision_4b", "falcon_mamba_7b", "jamba_15_large",
             "whisper_tiny")
@@ -241,7 +239,7 @@ class _Mesh4:
 
 
 _LARGER = textwrap.dedent("""
-    import dataclasses, json, sys
+    import dataclasses, datetime, json, sys
     import numpy as np
     import torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -254,7 +252,8 @@ _LARGER = textwrap.dedent("""
 
     tmp, rank = sys.argv[1], int(sys.argv[2])
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
-                            rank=rank, world_size=4)
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=60))
     mesh = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
     rules = MeshRules(mesh)
     shape = ShapeConfig("serve", 16, 8, "decode")
@@ -311,16 +310,10 @@ def larger(tmp_path_factory):
     ``LARGER_ARCHS`` served and trained one step there (``_LARGER``);
     every rank's readings, by arch."""
     tmp = tmp_path_factory.mktemp("larger")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", _LARGER, str(tmp),
-                               str(r), ",".join(LARGER_ARCHS)], cwd=ROOT,
-                              env=env, text=True, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE)
-             for r in range(4)]
-    outs = [p.communicate(timeout=300) for p in procs]
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-3000:]
+    with Children([[sys.executable, "-c", _LARGER, str(tmp), str(r),
+                    ",".join(LARGER_ARCHS)] for r in range(4)]) as children:
+        exits = children.wait(240)
+    assert not (failed := failures(exits)), failed
     return [json.loads((tmp / f"larger{r}.json").read_text())
             for r in range(4)]
 
@@ -445,7 +438,7 @@ def test_restore_with_shardings_of_a_checkpoint_the_reference_wrote(
 
 # --------------------------------------------- elastic restore, 4 ranks ---
 _RANK = textwrap.dedent("""
-    import pickle, sys
+    import datetime, pickle, sys
     import torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Shard
@@ -458,7 +451,8 @@ _RANK = textwrap.dedent("""
 
     tmp, rank = sys.argv[1], int(sys.argv[2])
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
-                            rank=rank, world_size=4)
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=60))
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     with open(f"{tmp}/ckpt.pkl", "rb") as f:
         files, saved = pickle.load(f)
@@ -499,16 +493,12 @@ def test_elastic_restore_onto_four_gloo_ranks(trained, tmp_path):
         "params": tr.final_state[0], "opt": tr.final_state[1]})
     with open(tmp_path / "ckpt.pkl", "wb") as f:
         pickle.dump((files, saved), f)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               GLOO_SOCKET_IFNAME="lo")
-    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(tmp_path),
-                               str(r)], cwd=ROOT, env=env, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-             for r in range(4)]
-    outs = [p.communicate(timeout=120) for p in procs]
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, err[-3000:]
-        words = out.split()
+    with Children([[sys.executable, "-c", _RANK, str(tmp_path), str(r)]
+                   for r in range(4)]) as children:
+        exits = children.wait(120)
+    assert not (failed := failures(exits)), failed
+    for r, e in enumerate(exits):
+        words = e.out.split()
         assert words[:3] == ["rank", str(r), "ok"] and int(words[3]) > 0
 
 
@@ -524,18 +514,17 @@ def test_train_launcher_joins_its_coordinator_and_builds_its_mesh():
     """``--coordinator`` makes the process group (one gloo rank here);
     the host mesh then trains, and ``--production-mesh`` refuses a group
     of fewer than 256 ranks, as the reference refuses fewer devices."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               GLOO_SOCKET_IFNAME="lo")
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             "llama32_1b", "--tiny", "--device", "cpu", "--steps", "1",
             "--ckpt-every", "5", "--batch", "2", "--seq", "16",
             "--num-hosts", "1", "--host-id", "0"]
-    procs = [subprocess.Popen(
-        base + ["--coordinator", f"localhost:{_free_port()}"] + extra,
-        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE) for extra in ([], ["--production-mesh"])]
-    (out, err), (_, refused) = [p.communicate(timeout=120) for p in procs]
-    assert procs[0].returncode == 0, err[-3000:]
-    assert out.startswith("step      1")
-    assert procs[1].returncode != 0
-    assert "needs a process group of 256 ranks; there are 1" in refused
+    # two groups: the refusal's exit must not cut the run short
+    with Children([base + ["--coordinator", f"localhost:{_free_port()}"]]
+                  ) as run, Children([base + [
+                      "--coordinator", f"localhost:{_free_port()}",
+                      "--production-mesh"]]) as refusal:
+        (ran,), (refused,) = run.wait(120), refusal.wait(120)
+    assert ran.returncode == 0, ran.err[-3000:]
+    assert ran.out.startswith("step      1")
+    assert refused.returncode != 0
+    assert "needs a process group of 256 ranks; there are 1" in refused.err

@@ -62,10 +62,7 @@ and the same bytes where the ranks ran the configs' own bf16 weights
 from __future__ import annotations
 
 import dataclasses
-import os
-import pathlib
 import pickle
-import subprocess
 import sys
 import textwrap
 
@@ -86,7 +83,8 @@ from repro_torch.train import optimizer as topt
 from repro_torch.train.step import TrainStepConfig, build_train_step
 from repro_torch.tree import flatten_with_path, tree_map
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+from children import Children, failures, one_thread
+
 ARCHS = ("llama32_1b", "gemma3_1b", "phi3_vision_4b", "whisper_tiny",
          "falcon_mamba_7b")
 BF16_ARCHS = ("whisper_tiny",)
@@ -118,7 +116,7 @@ class _Mesh1:
 
 # ---------------------------------------------------------------- ranks ---
 _RANK = textwrap.dedent("""
-    import sys
+    import datetime, sys
     import torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -135,7 +133,8 @@ _RANK = textwrap.dedent("""
 
     tmp, rank = sys.argv[1], int(sys.argv[2])
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
-                            rank=rank, world_size=4)
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=60))
     inp = torch.load(f"{tmp}/port_in.pt", weights_only=False)
     tcfg = TrainStepConfig(remat=False, adamw=topt.AdamWConfig(
         lr=inp["lr"], moment_dtype="int8"))
@@ -370,25 +369,19 @@ def runs(tmp_path_factory):
             for a, d in serve.items()},
             "train": {"params": tree_map(_host, params), "lr": LR,
                       "batches": [b.numpy() for b in batches]}}, f)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(tmp),
-                               str(r)], cwd=ROOT, env=env, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    argvs = [[sys.executable, "-c", _RANK, str(tmp), str(r)]
              for r in range(4)]
-    procs.append(subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE, str(tmp)], cwd=ROOT,
-        env=dict(env, JAX_PLATFORMS="cpu"), text=True,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-    # the mesh of one, in this process while the ranks run
-    plain = {"serve": {a: _plain_serve(a, d) for a, d in serve.items()},
-             "train": _plain_train(train)}
-    plain["update"] = dict(zip(("opt", "params"), topt.apply(
-        update["opt"], update["grads"], TCFG.adamw)))
-    plain["update"]["grad_norm"] = float(topt._global_norm(update["grads"]))
-    outs = [p.communicate(timeout=600) for p in procs]
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-4000:]
+    argvs.append([sys.executable, "-c", _REFERENCE, str(tmp)])
+    with Children(argvs) as children, one_thread():
+        # the mesh of one, in this process while the ranks run
+        plain = {"serve": {a: _plain_serve(a, d) for a, d in serve.items()},
+                 "train": _plain_train(train)}
+        plain["update"] = dict(zip(("opt", "params"), topt.apply(
+            update["opt"], update["grads"], TCFG.adamw)))
+        plain["update"]["grad_norm"] = float(topt._global_norm(
+            update["grads"]))
+        exits = children.wait(240)
+    assert not (failed := failures(exits)), failed
     ranks = [torch.load(tmp / f"out{r}.pt", weights_only=False)
              for r in range(4)]
     with open(tmp / "ref_out.pkl", "rb") as f:
@@ -577,22 +570,17 @@ def test_train_launcher_on_two_ranks_trains_data_parallel():
             "llama32_1b", "--tiny", "--device", "cpu", "--steps", "3",
             "--ckpt-every", "100", "--batch", "4", "--seq", "16",
             "--int8-moments"]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     coord = f"localhost:{_free_port()}"
-    procs = [subprocess.Popen(
-        base + extra, cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE) for extra in (
+    with Children([base + extra for extra in (
             [], *(["--coordinator", coord, "--num-hosts", "2", "--host-id",
-                   str(r)] for r in range(2)))]
-    outs = [p.communicate(timeout=180) for p in procs]
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-3000:]
+                   str(r)] for r in range(2)))]) as children:
+        exits = children.wait(180)
+    assert not (failed := failures(exits)), failed
 
     def steps(out):
         return [(float(w[3]), float(w[5])) for w in map(str.split,
                 out.splitlines()) if w[:1] == ["step"]]
-    one, *ranks = (steps(out) for out, _ in outs)
+    one, *ranks = (steps(e.out) for e in exits)
     assert len(one) == 3 and ranks[0] == ranks[1]
     for (gl, gn), (wl, wn) in zip(ranks[0], one, strict=True):
         assert abs(gl - wl) <= LOSS_TOL * wl and abs(gn - wn) <= GNORM_TOL * wn

@@ -54,10 +54,7 @@ bytes, so bytes are held on the bf16 train step).
 from __future__ import annotations
 
 import dataclasses
-import os
-import pathlib
 import pickle
-import subprocess
 import sys
 import textwrap
 
@@ -84,8 +81,8 @@ from repro_torch.tree import flatten_with_path, tree_map
 from test_torch_multirank import (BF16_ULP, FP32_DECODE, FP32_PREFILL,
                                   GNORM_TOL, LOSS_TOL, STATE_TOL, _f32,
                                   _host, _Mesh1, _share)
+from children import Children, failures, one_thread
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("granite_moe_1b", "deepseek_v2_236b", "jamba_15_large")
 REF_TRAIN = ("granite_moe_1b", "deepseek_v2_236b")
 LAYOUTS = {"2x2": ((2, 2), False), "2x2_fsdp": ((2, 2), True),
@@ -114,7 +111,7 @@ def _cfg(arch: str, capacity: float | None = None):
 
 # ---------------------------------------------------------------- ranks ---
 _RANK = textwrap.dedent("""
-    import dataclasses, sys
+    import dataclasses, datetime, sys
     import torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -130,7 +127,8 @@ _RANK = textwrap.dedent("""
 
     tmp, rank = sys.argv[1], int(sys.argv[2])
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
-                            rank=rank, world_size=4)
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=60))
     inp = torch.load(f"{tmp}/port_in.pt", weights_only=False)
     tcfg = TrainStepConfig(remat=False, adamw=topt.AdamWConfig(
         lr=inp["lr"], moment_dtype="int8"))
@@ -394,25 +392,18 @@ def runs(tmp_path_factory):
                       "params": {a: tree_map(_host, tparams[a])
                                  for a in REF_TRAIN},
                       "batches": [b.numpy() for b in batches]}}, f)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(tmp),
-                               str(r)], cwd=ROOT, env=env, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    argvs = [[sys.executable, "-c", _RANK, str(tmp), str(r)]
              for r in range(4)]
-    procs.append(subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE, str(tmp)], cwd=ROOT,
-        env=dict(env, JAX_PLATFORMS="cpu"), text=True,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-    # the mesh of one, in this process while the ranks run
-    plain = {"serve": {a: _plain_serve(a, d) for a, d in serve.items()},
-             "train": {a: _plain_train(a, train) for a in ARCHS},
-             "drop": _plain_serve(DROP_ARCH, serve[DROP_ARCH],
-                                  DROP_CAPACITY),
-             "layer": _plain_layer(layer)}
-    outs = [p.communicate(timeout=600) for p in procs]
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-4000:]
+    argvs.append([sys.executable, "-c", _REFERENCE, str(tmp)])
+    with Children(argvs) as children, one_thread():
+        # the mesh of one, in this process while the ranks run
+        plain = {"serve": {a: _plain_serve(a, d) for a, d in serve.items()},
+                 "train": {a: _plain_train(a, train) for a in ARCHS},
+                 "drop": _plain_serve(DROP_ARCH, serve[DROP_ARCH],
+                                      DROP_CAPACITY),
+                 "layer": _plain_layer(layer)}
+        exits = children.wait(240)
+    assert not (failed := failures(exits)), failed
     ranks = [torch.load(tmp / f"out{r}.pt", weights_only=False)
              for r in range(4)]
     with open(tmp / "ref_out.pkl", "rb") as f:
